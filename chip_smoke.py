@@ -23,7 +23,18 @@
    after; then holds it against ``banded_overlap_batch`` (the plain
    version) and kernel 4 against its plain version and against kernel 3 on
    the same pairs, exactly, with kernel 4's, kernel 3's and the plain
-   version's times.
+   version's times;
+6. drives the Myers table tier ``overlap.myers_cuda.myers_compute_tab``
+   (kernel 5, the window fetch, feeding the window-fed kernels 1 and 2) on
+   c4's three buckets that the reference sends to its table tier (W = 64 at
+   J = 4096 and 8192, W = 128 at J = 4096), its three launch counts set to 0
+   just before and read just after; then holds it against ``myers_pair``
+   (the resident kernels), kernel 5 against its plain gather, the
+   window-fed kernels against the resident ones on every bucket and against
+   their plain versions on the W = 64, J = 4096 bucket, exactly, with the
+   kernels' times beside the resident kernels', kernel 5's bound (bytes)
+   and the time of one torch indexing expression that cuts the same peq
+   window out of a zero-padded table (``library_ms``).
 
 Each kernel's bound is the larger of its integer operations over the
 card's INT32 rate (SMs x 64 lanes x the maximum SM clock) and its bytes
@@ -49,7 +60,13 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "myers_rev": ("phasm_tpu_torch/csrc/myers.cu", "phasm_tpu/overlap/myers_pallas.py:450"),
     "wband": ("phasm_tpu_torch/csrc/wband.cu", "phasm_tpu/overlap/extend.py:1246"),
     "wband_dense": ("phasm_tpu_torch/csrc/wband.cu", "phasm_tpu/overlap/extend.py:363"),
+    "myers_fwd_fetch": ("phasm_tpu_torch/csrc/myers_fetch.cu", "scripts/myers_dma_proto.py:24"),
+    "myers_fwd_win": ("phasm_tpu_torch/csrc/myers.cu", "phasm_tpu/overlap/myers_pallas.py:157"),
+    "myers_rev_win": ("phasm_tpu_torch/csrc/myers.cu", "phasm_tpu/overlap/myers_pallas.py:450"),
 }
+# c4's (band, column bucket)s that the reference runs through its Myers
+# table tier (myers_pallas_compute_tab): Myers-routed, rejected by tab2_fits
+TAB_BUCKETS = ((64, 4096), (64, 8192), (128, 4096))
 
 # integer ops per unit of work, counted from the kernel sources: the Myers
 # word step (csrc/myers.cu word_step + select_eq) per band word and column;
@@ -220,6 +237,102 @@ def wband_bound(lb, W: int, J: int, int_rate: float) -> dict:
     cols = _cols(lb, J)
     nbytes = 2 * int(cols.sum()) + (W + 32) * cols.numel()
     return _bound(WBAND_OPS_PER_CELL * W * int(cols.sum()), nbytes, int_rate)
+
+
+def fetch_bound(tables, a_oid, b_oid, sfw, W: int, J: int) -> dict:
+    """Kernel 5 computes nothing.  Bytes: each window written once (NBLK *
+    16 + J/4 a pair), each table word it reads read once (the union of the
+    pairs' in-row peq windows, 4 planes of 4 bytes a word, and the first
+    min(J/16, BW) packed b words of each b row), 12 bytes of indices a pair.
+    ``per_pair_bytes`` counts every pair's window as read too."""
+    import torch
+
+    from phasm_tpu_torch.overlap.myers import K_of
+
+    B, NBLK, JW = a_oid.shape[0], J // 32 + K_of(W), J // 16
+    n_o, _, PW = tables.peq.shape
+    # in-row window words per table row: +1 at each window's start, -1 past its end
+    marks = torch.zeros(n_o * (PW + 1), dtype=torch.int64, device=a_oid.device)
+    base, s = a_oid.long() * (PW + 1), sfw.long()
+    ones = torch.ones_like(base)
+    marks.index_add_(0, base + s.clamp(0, PW), ones)
+    marks.index_add_(0, base + (s + NBLK).clamp(0, PW), -ones)
+    peq_words = int((marks.view(n_o, PW + 1).cumsum(1) > 0).sum())
+    b_words = min(JW, tables.bpk.shape[2]) * torch.unique(b_oid).numel()
+    per_pair = B * (2 * (NBLK * 16 + JW * 4) + 12)
+    rec = _bound(0, B * (NBLK * 16 + JW * 4 + 12) + 16 * peq_words + 4 * b_words, 1.0)
+    return dict(rec, per_pair_bytes=per_pair, per_pair_bound_ms=per_pair / HBM_BYTES_PER_S * 1e3)
+
+
+def myers_win_bound(lens, K: int, J: int, out_bytes: int, int_rate: float) -> dict:
+    """The window-fed kernels: K words x 17 ops per column; bytes: the
+    window words the pair's columns consume (4 planes x 4 bytes per word
+    per 32-column block), 8 bytes of packed b per block, 12 bytes of
+    per-pair inputs and out_bytes of results."""
+    cols = _cols(lens, J)
+    blocks = (cols + 31) // 32
+    nbytes = (16 * int((blocks + K - 1).clamp(min=0).sum()) + 8 * int(blocks.sum())
+              + (12 + out_bytes) * cols.numel())
+    return _bound(MYERS_OPS_PER_WORD * K * int(cols.sum()), nbytes, int_rate)
+
+
+def _event_once(fn):
+    """(result, CUDA-event ms) of one call."""
+    import torch
+
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _wall_ms(fn):
+    """(result, host-clock ms of one call that ends in a device sync)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _warm_time(fn, reps: int = 5):
+    """(result, mean ms of reps launches after one warm-up)."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _time_ms(fn, reps)
+
+
+def resident_myers_ms(reps: int = 30) -> dict:
+    """Kernels 1 and 2 as the main path launches them, on phase 3's c4 Myers
+    buckets: {label: [fwd ms, rev ms]}, each the mean of reps launches after
+    a warm-up.  It uses only port APIs older than the table tier, so a copy
+    of this script times an older tree on the same card (run the two in
+    turns):
+        cp chip_smoke.py OLD/chip_smoke_new.py && cd OLD && python -c \
+          "import chip_smoke_new as c; print(c.resident_myers_ms())"
+    """
+    from phasm_tpu_torch._build import index_tensors
+    from phasm_tpu_torch.configs import ladder
+    from phasm_tpu_torch.overlap import myers_cuda as MC
+    from phasm_tpu_torch.state import DeviceReads
+
+    c4 = next(r for r in ladder() if r.name.startswith("c4"))
+    rs, ka, kb, kd, la, lb = _candidates(c4, 64)
+    reads = DeviceReads.from_reads(rs, "cuda")
+    out = {}
+    for W, J in ((64, 1024), (64, 4096), (64, 8192), (128, 4096)):
+        idx = _bucket(c4, ka, kd, la, lb, W, J)
+        a, b, d = index_tensors(reads.device, ka[idx], kb[idx], kd[idx])
+        fwd, ms_f = _warm_time(lambda: MC.myers_fwd(reads, a, b, d, W, J), reps)
+        _, ms_r = _warm_time(lambda: MC.myers_rev(reads, a, b, d, fwd[1], fwd[2], W, J), reps)
+        out[f"c4.W{W}.J{J}"] = [ms_f, ms_r]
+    return out
 
 
 def kernel_checks(int_rate: float) -> dict:
@@ -420,6 +533,110 @@ def batch_entry_point(int_rate: float) -> tuple[dict, list]:
     return launches, cases
 
 
+def table_tier(int_rate: float) -> tuple[dict, dict]:
+    """Kernel 5's path: ``myers_compute_tab`` on c4's table-tier buckets,
+    its three launch counts set to 0 just before and read just after; then
+    the checks and timings on the same pairs.  Returns (launches, {name:
+    case dicts}).  Raises on any disagreement."""
+    import torch
+
+    from phasm_tpu_torch._build import index_tensors
+    from phasm_tpu_torch.configs import ladder
+    from phasm_tpu_torch.overlap import myers as plain
+    from phasm_tpu_torch.overlap import myers_cuda as MC
+    from phasm_tpu_torch.overlap.routing import route, tab2_fits
+    from phasm_tpu_torch.state import DeviceReads, MyersTables
+
+    c4 = next(r for r in ladder() if r.name.startswith("c4"))
+    rs, ka, kb, kd, la, lb = _candidates(c4, 64)
+    reads = DeviceReads.from_reads(rs, "cuda")
+    tables, build_ms = _event_once(lambda: MyersTables.from_reads(reads))
+    _say(f"c4 Myers tables: peq {list(tables.peq.shape)}, bpk {list(tables.bpk.shape)}, "
+         f"{tables.nbytes} bytes, built in {build_ms:.1f} ms")
+    batches = []
+    for W, J in TAB_BUCKETS:
+        assert route("myers_pallas", W, J) == "myers" and not tab2_fits(W, J), (W, J)
+        idx = _bucket(c4, ka, kd, la, lb, W, J)
+        batches.append((W, J, *index_tensors(reads.device, ka[idx], kb[idx], kd[idx])))
+
+    MC.myers_fwd_fetch_launches = MC.myers_fwd_win_launches = MC.myers_rev_win_launches = 0
+    entry = [  # (outputs, wall ms); the first call also loads torch's gather code
+        _wall_ms(lambda: MC.myers_compute_tab(tables, reads.lengths, a, b, d, W, J))
+        for W, J, a, b, d in batches
+    ]
+    launches = {k: getattr(MC, f"{k}_launches") for k in
+                ("myers_fwd_fetch", "myers_fwd_win", "myers_rev_win")}
+    _say("table tier launches:", json.dumps(launches))
+    for name, n in launches.items():
+        if n < len(batches):
+            raise AssertionError(f"myers_compute_tab did not launch {name} for every batch")
+
+    cases: dict = {k: [] for k in launches}
+    for (W, J, a, b, d), (out, wall_ms) in zip(batches, entry):
+        label, B = f"c4.W{W}.J{J}", a.shape[0]
+        want, pair_ms = _wall_ms(lambda: MC.myers_pair(reads, a, b, d, W, J))
+        _, warm_ms = _wall_ms(lambda: MC.myers_compute_tab(tables, reads.lengths, a, b, d, W, J))
+        entry_err = _max_abs_err(out, want)
+
+        # kernel 5, its plain gather, and one torch indexing expression
+        m0 = plain.fwd_anchor(d, W)
+        sfw = (m0 + plain.F_TAB).int()
+        win, ms5 = _warm_time(lambda: MC.myers_fwd_fetch(tables, a, b, sfw, W, J), 20)
+        win_plain, plain5 = _event_once(lambda: MC.myers_fwd_fetch_plain(tables, a, b, sfw, W, J))
+        NBLK = J // 32 + plain.K_of(W)
+        padded = torch.nn.functional.pad(tables.peq[:, :4], (0, NBLK))  # zero pad, untimed
+        ai = a.long()[None, None, :]
+        ci = torch.arange(4, device=reads.device)[None, :, None]
+        si = sfw.long()[None, None, :]
+        ki = torch.arange(NBLK, device=reads.device)[:, None, None]
+        lib_out, lib_ms = _warm_time(lambda: padded[ai, ci, si + ki], 20)
+        err5 = max(_max_abs_err(win, win_plain), _max_abs_err([win[0]], [lib_out]))
+
+        # window-fed kernel 1 beside the resident kernel 1 on the same pairs
+        la_t, lb_t = reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1]
+        fw, ms_fw = _warm_time(lambda: MC.myers_fwd_win(la_t, lb_t, d, win[0], win[1], W, J))
+        fr, ms_fr = _warm_time(lambda: MC.myers_fwd(reads, a, b, d, W, J))
+        iend, jend = (fw[1] + 32 * m0).int(), fw[2]
+        err_f = _max_abs_err((fw[0], iend, fw[2], fw[3]), fr)
+        (peq_r, bpk_r, row_off), prep_ms = _event_once(lambda: plain.rev_prep_tab(
+            tables.peq, tables.bpk, a, b, tables.LA, iend, jend, d, W, J))
+        row_off = row_off.int()
+        rw, ms_rw = _warm_time(lambda: MC.myers_rev_win(row_off, iend, jend, peq_r, bpk_r, W, J))
+        rr, ms_rr = _warm_time(lambda: MC.myers_rev(reads, a, b, d, iend, jend, W, J))
+        err_r = _max_abs_err(rw, rr)
+        plain_f = plain_r = None
+        if (W, J) == (64, 4096):  # the plain Myers core costs seconds a batch
+            pf, plain_f = _event_once(
+                lambda: plain.fwd_win_plain(la_t, lb_t, d, win[0], win[1], W, J))
+            pr, plain_r = _event_once(
+                lambda: plain.rev_win_plain(row_off, iend, jend, peq_r, bpk_r, W, J))
+            err_f = max(err_f, _max_abs_err(fw, pf))
+            err_r = max(err_r, _max_abs_err(rw, pr))
+        cases["myers_fwd_fetch"].append(dict(
+            case=label, pairs=B, W=W, J=J, ms=ms5, plain_ms=plain5, library_ms=lib_ms,
+            max_abs_err=err5, entry_wall_ms=wall_ms, entry_warm_ms=warm_ms,
+            myers_pair_wall_ms=pair_ms, rev_prep_tab_ms=prep_ms,
+            **fetch_bound(tables, a, b, sfw, W, J)))
+        cases["myers_fwd_win"].append(dict(
+            case=label, pairs=B, W=W, J=J, ms=ms_fw, resident_ms=ms_fr, plain_ms=plain_f,
+            max_abs_err=err_f, **myers_win_bound(lb_t, plain.K_of(W), J, 16, int_rate)))
+        cases["myers_rev_win"].append(dict(
+            case=label, pairs=B, W=W, J=J, ms=ms_rw, resident_ms=ms_rr, plain_ms=plain_r,
+            max_abs_err=err_r, **myers_win_bound(jend, plain.rev_K(W), J, 8, int_rate)))
+        _say(f"  table tier {label}: pairs={B}; entry point {wall_ms:.2f} ms wall (first call), "
+             f"{warm_ms:.2f} ms (again) vs myers_pair {pair_ms:.2f} ms (max_abs_err {entry_err}); "
+             f"kernel 5 {ms5:.4f} ms, plain {plain5:.3f} ms, one torch indexing expression "
+             f"{lib_ms:.4f} ms, bound {cases['myers_fwd_fetch'][-1]['bound_ms']:.4f} ms (bytes; "
+             f"{cases['myers_fwd_fetch'][-1]['per_pair_bound_ms']:.4f} ms counting every window read), "
+             f"max_abs_err {err5}; rev_prep_tab {prep_ms:.3f} ms")
+        _say(f"  table tier {label}: window-fed fwd {ms_fw:.3f} ms vs resident {ms_fr:.3f} ms, "
+             f"rev {ms_rw:.3f} ms vs resident {ms_rr:.3f} ms; plain fwd {plain_f} ms, plain rev "
+             f"{plain_r} ms; max_abs_err fwd {err_f}, rev {err_r}")
+        if max(entry_err, err5, err_f, err_r) != 0:
+            raise AssertionError(f"table tier {label}: disagrees with the resident path or a plain version")
+    return launches, cases
+
+
 def main() -> int:
     import torch
 
@@ -437,16 +654,21 @@ def main() -> int:
     _say("batch entry point (kernel 4):")
     dense_launches, checks["wband_dense"] = batch_entry_point(int_rate)
     launches.update(dense_launches)
+    _say("table tier (kernel 5):")
+    tab_launches, tab_checks = table_tier(int_rate)
+    launches.update(tab_launches)
+    checks.update(tab_checks)
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         recs = checks[name]
-        rep = max(recs, key=lambda r: r["pairs"] * r["J"])  # largest batch
+        # the largest batch on which the plain version was also timed
+        rep = max((r for r in recs if r["plain_ms"] is not None), key=lambda r: r["pairs"] * r["J"])
         line["kernels"].append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=None, at=rep["case"], cases=recs,
+            bound_by=rep["bound_by"], library_ms=rep.get("library_ms"), at=rep["case"], cases=recs,
         ))
     _say(json.dumps(line))
     _say(json.dumps({"ok": True, "device": {

@@ -425,3 +425,204 @@ def rev_plain(codes, lengths, a_oid, b_oid, d0, iend, jend, W: int, J: int):
     """Kernel 2's contract in plain torch: (cost_rev, best_row) int32."""
     rows = _rows(codes, lengths, a_oid, b_oid, d0)
     return _i32(rev_rows(*rows, iend.long(), jend.long(), W, J))
+
+
+# -- the table tier: twins of the reference's ``build_myers_tables``,
+# ``fwd_prep_tab`` and ``rev_prep_tab`` (``phasm_tpu/overlap/myers.py``).
+# Whole-read tables are built once per oriented matrix; each batch then
+# cuts its pairs' forward and reverse windows out of them.  The reference
+# cuts them with a logarithmic barrel shift (a TPU workaround for slow
+# per-row-offset gathers); here one per-pair gather takes its place and
+# gives the same words.  Window words are int32 holding uint32 bits. --
+
+_TABLE_CHUNK_CELLS = 1 << 24  # bounds the int64 temporaries of a table build
+
+F_TAB = 16  # table front-pad words (the reference's bound: F_TAB >=
+# K_of(W) + 4 keeps every forward shift and reverse word offset >= 0)
+
+
+def table_words(LA: int) -> tuple[int, int]:
+    """(PW, BW): peq words and packed-b words per table row for width LA."""
+    PW = F_TAB + (LA + WB - 1) // WB + 2
+    BW = (LA + 15) // 16 + 2
+    return PW, BW
+
+
+def to_u32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 holding 32-bit words -> int32 with the same bit pattern."""
+    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
+
+
+def match_mask_table(
+    rows: torch.Tensor, lens: torch.Tensor, reverse: bool = False
+) -> torch.Tensor:
+    """[n, L] uint8 codes + [n] valid lengths -> [n, ceil(L/32), 4] int32
+    (uint32 bits): bit t of word w, plane c <=> x[32w + t] == c and
+    32w + t < lens, where x is the row (reverse=False) or the row reversed
+    within its own length (x[f] = row[lens - 1 - f]).  Positions outside a
+    read never match."""
+    n, L = rows.shape
+    PW = -(-L // WB)
+    out = torch.empty((n, PW, 4), dtype=torch.int32, device=rows.device)
+    t = torch.arange(WB, dtype=torch.int64, device=rows.device)
+    pos = torch.arange(PW * WB, device=rows.device).view(1, PW, WB)
+    f = torch.arange(L, device=rows.device)[None, :]
+    step = max(1, _TABLE_CHUNK_CELLS // (PW * WB))
+    for s in range(0, n, step):
+        x = rows[s : s + step]
+        ln = lens[s : s + step]
+        if reverse:
+            x = x.gather(1, (ln[:, None] - 1 - f).clamp(min=0))
+        x = torch.nn.functional.pad(x, (0, PW * WB - L)).view(-1, PW, WB)
+        valid = pos < ln.view(-1, 1, 1)
+        planes = [
+            (((x == c) & valid).long() << t).sum(dim=-1) for c in range(4)
+        ]
+        out[s : s + step] = to_u32_bits(torch.stack(planes, dim=-1))
+    return out
+
+
+def _pack_codes(rows: torch.Tensor, BW: int) -> torch.Tensor:
+    """[n, L] codes -> [n, BW] int32: 2 bits a code (code & 3), 16 a word,
+    zero past L."""
+    n, L = rows.shape
+    out = torch.empty((n, BW), dtype=torch.int32, device=rows.device)
+    sh = 2 * torch.arange(16, dtype=torch.int64, device=rows.device)
+    step = max(1, _TABLE_CHUNK_CELLS // (BW * 16))
+    for s in range(0, n, step):
+        x = torch.nn.functional.pad(rows[s : s + step], (0, BW * 16 - L))
+        v = (x.long() & 3).view(-1, BW, 16)
+        out[s : s + step] = to_u32_bits((v << sh).sum(dim=-1))
+    return out
+
+
+def build_myers_tables(oriented: torch.Tensor, lengths: torch.Tensor) -> dict:
+    """Whole-read window tables, built once per oriented matrix on its
+    device (twin of the reference's ``build_myers_tables``).
+
+    oriented [n_o, LA] uint8 codes (row 2r = read r forward, 2r+1 revcomp);
+    lengths [n_reads] int32.  Returns dict:
+      peq [n_o, 8, PW] int32 (uint32 bits): planes 0..3 the forward match
+          masks (bit t of word w: a[32(w - F_TAB) + t] == c, zero outside
+          [0, la)); planes 4..7 the same over flip rows flip[f] = a[LA-1-f],
+          reversed within LA (not within the read's own length, as
+          ``match_mask_table(reverse=True)`` is), zero off the read;
+      bpk [n_o, 2, BW] int32: 2-bit packed codes, 16 a word, plane 0 the
+          row, plane 1 the flip row, with positions off the read as code 0.
+    """
+    n_o, LA = oriented.shape
+    PW, _ = table_words(LA)
+    dev = oriented.device
+    la_row = lengths.long()[torch.arange(n_o, device=dev) // 2]
+    pos = torch.arange(LA, device=dev)[None, :]
+    masked = torch.where(pos < la_row[:, None], oriented, PAD).to(torch.uint8)
+    flip = masked.flip(1)
+    nw = -(-LA // WB)
+    whole = torch.full_like(la_row, LA)  # PAD codes never match
+    peq = torch.zeros((n_o, 8, PW), dtype=torch.int32, device=dev)
+    for half, rows in enumerate((masked, flip)):
+        peq[:, 4 * half : 4 * half + 4, F_TAB : F_TAB + nw] = (
+            match_mask_table(rows, whole).permute(0, 2, 1)
+        )
+    BW = table_words(LA)[1]
+    bpk = torch.stack([_pack_codes(masked, BW), _pack_codes(flip, BW)], dim=1)
+    return {"peq": peq, "bpk": bpk}
+
+
+def _table_words(tab, oid, plane0: int, nplanes: int, start, n: int):
+    """Words start + k (k < n) of planes plane0 .. plane0 + nplanes - 1 of
+    table rows oid: [n, nplanes, B] int32, zero outside the row (the
+    reference's zero pad)."""
+    _, P, PW = tab.shape
+    dev = tab.device
+    w = start.long()[None, :] + torch.arange(n, device=dev)[:, None]  # [n, B]
+    rows = oid.long()[None, :] * P + plane0 + torch.arange(nplanes, device=dev)[:, None]
+    idx = rows[None] * PW + w.clamp(0, PW - 1)[:, None, :]
+    ok = ((w >= 0) & (w < PW))[:, None, :]
+    return torch.where(ok, tab.reshape(-1)[idx], 0)
+
+
+def fwd_fetch(peq_tab, bpk_tab, a_oid, b_oid, sfw, W: int, J: int):
+    """Kernel 5's function (``scripts/myers_dma_proto.py::make_fwd_fetch``):
+    peq_f[k, c, p] = peq_tab[a_oid[p], c, sfw[p] + k] for k < NBLK and
+    bpk_f[w, p] = bpk_tab[b_oid[p], 0, w] for w < J/16, words past a row
+    being 0.  Returns ([NBLK, 4, B], [J/16, B]) int32."""
+    return (
+        _table_words(peq_tab, a_oid, 0, 4, sfw, J // WB + K_of(W)),
+        _table_words(bpk_tab, b_oid, 0, 1, torch.zeros_like(sfw), J // 16)[:, 0],
+    )
+
+
+def fwd_prep_tab(peq_tab, bpk_tab, a_oid, b_oid, la, d0, W: int, J: int):
+    """Forward window from the tables (twin of the reference's
+    ``fwd_prep_tab``, which takes the pairs' gathered rows instead of the
+    tables and oids): (peq_f [NBLK, 4, B], bpk_f [J/16, B], la_rel, m0)."""
+    m0 = fwd_anchor(d0.long(), W)
+    peq_f, bpk_f = fwd_fetch(peq_tab, bpk_tab, a_oid, b_oid, m0 + F_TAB, W, J)
+    return peq_f, bpk_f, la.long() - m0 * WB, m0
+
+
+def funnel_bits(x, delta):
+    """out[w] = (x[w] >> delta) | (x[w+1] << (32 - delta)) on 32-bit words
+    in int64 (axis 0), per-pair delta in [0, 32) on the last axis.  Output
+    has one fewer word than x."""
+    d = delta.long()[(None,) * (x.ndim - 1)]
+    lo = x[:-1] >> d
+    hi = torch.where(d == 0, 0, (x[1:] << (32 - d)) & MASK)
+    return lo | hi
+
+
+def rev_prep_tab(peq_tab, bpk_tab, a_oid, b_oid, LA: int, iend, jend, d0, W: int, J: int):
+    """Reverse window (anchored-end start recovery) from the tables (twin
+    of the reference's ``rev_prep_tab``, over tables and oids).
+
+    Window word k bit t = flip-plane bit at off + 32k + t, off = (LA - iend)
+    + 32*m0r: a per-pair word gather plus one bit funnel.  Words k < -m0r
+    lie below the reversed prefix and are zero.  Returns (peq_r [NBLKr, 4,
+    B] int32, bpk_r [J/16, B] int32, row_off [B] int64)."""
+    iend, jend = iend.long(), jend.long()
+    NBLKr = J // WB + rev_K(W)
+    m0r = rev_anchor(iend, jend, d0.long(), W)
+    obit = (LA - iend) + m0r * WB + F_TAB * WB
+    x = _table_words(peq_tab, a_oid, 4, 4, obit // WB, NBLKr + 1).long() & MASK
+    peq_r = funnel_bits(x, obit % WB)
+    k = torch.arange(NBLKr, device=x.device)[:, None, None]
+    peq_r = to_u32_bits(torch.where(k < -m0r[None, None, :], 0, peq_r))
+    # packed reversed-b window: code j = flip-b code at cb + j, cb = LA - jend
+    cb = LA - jend
+    JW = J // 16
+    bx = _table_words(bpk_tab, b_oid, 1, 1, cb // 16, JW + 1)[:, 0].long() & MASK
+    bpk_r = to_u32_bits(funnel_bits(bx, 2 * (cb % 16)))
+    return peq_r, bpk_r, m0r * WB
+
+
+def _window_peq(peq_w):
+    """[N, 4, B] int32 window words -> [N, 5, B] int64 words as the cores
+    take them (plane 4, the PAD plane, all zero)."""
+    x = peq_w.long() & MASK
+    return torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+
+
+def unpack_b(bpk_w, J: int):
+    """[J/16, B] packed window -> [J, B] int64 codes 0..3.  Packing turned
+    PAD into code 0; the cores gate every column j >= lb off, so it is
+    never read (the reference's own argument for its packed windows)."""
+    sh = 2 * torch.arange(16, dtype=torch.int64, device=bpk_w.device)[None, :, None]
+    return ((bpk_w.long()[:, None, :] >> sh) & 3).reshape(J, -1)
+
+
+def fwd_win_plain(la, lb, d0, peq_f, bpk_f, W: int, J: int):
+    """The window-fed kernel 1's contract in plain torch: the forward core
+    fed a fetched window; (cost_f, iend_rel, jend, win) int32, iend_rel
+    relative to the anchor row 32*m0."""
+    la, lb, d0 = la.long(), lb.long(), d0.long()
+    la_rel = la - fwd_anchor(d0, W) * WB
+    return _i32(fwd_core(_window_peq(peq_f), unpack_b(bpk_f, J), la_rel, la, lb, d0, W))
+
+
+def rev_win_plain(row_off, iend, jend, peq_r, bpk_r, W: int, J: int):
+    """The window-fed kernel 2's contract in plain torch: (cost_rev,
+    best_row) int32."""
+    return _i32(rev_core(
+        _window_peq(peq_r), unpack_b(bpk_r, J), row_off.long(), iend.long(), jend.long(), W
+    ))

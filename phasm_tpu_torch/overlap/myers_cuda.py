@@ -1,9 +1,14 @@
-"""Kernels 1 and 2 (``csrc/myers.cu``): Myers forward and Myers reverse.
+"""Kernels 1 and 2 (``csrc/myers.cu``): Myers forward and Myers reverse,
+and the Myers table tier: kernel 5 (``csrc/myers_fetch.cu``, the per-pair
+forward window fetch) feeding the window-fed variants of kernels 1 and 2.
 
-Each wrapper runs the plain torch version (``overlap/myers.py``) when the
-read set lies on the CPU and launches its CUDA kernel when it lies on the
+Each wrapper runs the plain torch version (``overlap/myers.py``) when its
+tensors lie on the CPU and launches its CUDA kernel when they lie on the
 card; on the card it launches or raises, never falls back.  Each keeps a
-plain launch count, bumped only where its kernel is launched.
+plain launch count, bumped only where its kernel is launched.  The main
+path (``DeviceExtender``) runs the resident kernels 1 and 2 only; the table
+tier is the entry point ``myers_compute_tab``, and its three counts stay out
+of ``configs.launch_counts()``.
 """
 from __future__ import annotations
 
@@ -13,11 +18,14 @@ import torch
 from phasm_tpu_torch import _build
 from phasm_tpu_torch.overlap import myers as plain
 from phasm_tpu_torch.overlap.extend import ExtendResult
-from phasm_tpu_torch.overlap.myers import K_of
-from phasm_tpu_torch.state import DeviceReads
+from phasm_tpu_torch.overlap.myers import F_TAB, WB, K_of, rev_K
+from phasm_tpu_torch.state import DeviceReads, MyersTables
 
 myers_fwd_launches = 0
 myers_rev_launches = 0
+myers_fwd_fetch_launches = 0
+myers_fwd_win_launches = 0
+myers_rev_win_launches = 0
 
 
 def _require_table(table):
@@ -104,10 +112,147 @@ def myers_overlap_batch(
     """Twin of ``myers.myers_overlap_batch`` on the port's Myers path."""
     reads = DeviceReads.from_arrays(oriented, lengths, device)
     a, b, d = _build.index_tensors(reads.device, a_oid, b_oid, d0)
-    cost, i0, iend, jend, win = (
-        x.cpu().numpy() for x in myers_pair(reads, a, b, d, band, jmax)
-    )
+    return _result(myers_pair(reads, a, b, d, band, jmax))
+
+
+def _result(out) -> ExtendResult:
+    cost, i0, iend, jend, win = (x.cpu().numpy() for x in out)
     return ExtendResult(
         a_start=i0, a_end=iend, b_start=np.zeros_like(i0), b_end=jend,
         diffs=cost, win_cost=win,
     )
+
+
+# -- the table tier --
+
+
+def _check_windows(dev, *named) -> None:
+    """Raise unless each (name, tensor, shape) is a contiguous int32 tensor
+    of that shape on dev."""
+    for name, t, shape in named:
+        if (
+            t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != shape
+            or not t.is_contiguous()
+        ):
+            raise ValueError(f"{name}: expected contiguous int32 {list(shape)} on {dev}")
+
+
+def myers_fwd_fetch_plain(tables: MyersTables, a_oid, b_oid, sfw, W: int, J: int):
+    """Kernel 5's plain version: one indexing gather per table."""
+    return plain.fwd_fetch(tables.peq, tables.bpk, a_oid, b_oid, sfw, W, J)
+
+
+def myers_fwd_fetch(tables: MyersTables, a_oid, b_oid, sfw, W: int, J: int):
+    """Kernel 5: each pair's forward window out of the tables, (peq_f
+    [NBLK, 4, B], bpk_f [J/16, B]) int32, NBLK = J/32 + K_of(W); sfw =
+    fwd_anchor(d0, W) + F_TAB.  Words past a table row come out 0."""
+    global myers_fwd_fetch_launches
+    if tables.device.type == "cpu":
+        return myers_fwd_fetch_plain(tables, a_oid, b_oid, sfw, W, J)
+    _check_shape(W, J)
+    dev = tables.device
+    n_o, _, PW = tables.peq.shape
+    BW = tables.bpk.shape[2]
+    _check_windows(dev, ("peq table", tables.peq, (n_o, 8, PW)),
+                   ("bpk table", tables.bpk, (n_o, 2, BW)))
+    _build.check_pair_vectors(dev, a_oid, b_oid, sfw)
+    B, NBLK, JW = a_oid.shape[0], J // WB + K_of(W), J // 16
+    peq_f = torch.empty((NBLK, 4, B), dtype=torch.int32, device=dev)
+    bpk_f = torch.empty((JW, B), dtype=torch.int32, device=dev)
+    if B == 0:
+        return peq_f, bpk_f
+    err = _build.load().phasm_myers_fwd_fetch(
+        a_oid.data_ptr(), b_oid.data_ptr(), sfw.data_ptr(),
+        tables.peq.data_ptr(), PW, tables.bpk.data_ptr(), BW, B, NBLK, JW,
+        peq_f.data_ptr(), bpk_f.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "phasm_myers_fwd_fetch")
+    myers_fwd_fetch_launches += 1
+    return peq_f, bpk_f
+
+
+def myers_fwd_win(la, lb, d0, peq_f, bpk_f, W: int, J: int):
+    """Window-fed kernel 1: (cost_f, iend_rel, jend, win) int32 [B], the
+    TPU kernel's contract (iend relative to the anchor row 32*m0)."""
+    global myers_fwd_win_launches
+    if la.device.type == "cpu":
+        return plain.fwd_win_plain(la, lb, d0, peq_f, bpk_f, W, J)
+    _check_shape(W, J)
+    _build.check_pair_vectors(la.device, la, lb, d0)
+    B = la.shape[0]
+    _check_windows(la.device, ("peq_f", peq_f, (J // WB + K_of(W), 4, B)),
+                   ("bpk_f", bpk_f, (J // 16, B)))
+    outs = [torch.empty(B, dtype=torch.int32, device=la.device) for _ in range(4)]
+    if B == 0:
+        return tuple(outs)
+    err = _build.load().phasm_myers_fwd_win(
+        la.data_ptr(), lb.data_ptr(), d0.data_ptr(), peq_f.data_ptr(), bpk_f.data_ptr(),
+        B, W, J, *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream(la.device).cuda_stream,
+    )
+    _build.check(err, "phasm_myers_fwd_win")
+    myers_fwd_win_launches += 1
+    return tuple(outs)
+
+
+def myers_rev_win(row_off, iend, jend, peq_r, bpk_r, W: int, J: int):
+    """Window-fed kernel 2: (cost_rev, best_row) int32 [B] over the
+    reverse windows of ``rev_prep_tab``."""
+    global myers_rev_win_launches
+    if row_off.device.type == "cpu":
+        return plain.rev_win_plain(row_off, iend, jend, peq_r, bpk_r, W, J)
+    _check_shape(W, J)
+    _build.check_pair_vectors(row_off.device, row_off, iend, jend)
+    B = row_off.shape[0]
+    _check_windows(row_off.device, ("peq_r", peq_r, (J // WB + rev_K(W), 4, B)),
+                   ("bpk_r", bpk_r, (J // 16, B)))
+    outs = [torch.empty(B, dtype=torch.int32, device=row_off.device) for _ in range(2)]
+    if B == 0:
+        return tuple(outs)
+    err = _build.load().phasm_myers_rev_win(
+        row_off.data_ptr(), iend.data_ptr(), jend.data_ptr(), peq_r.data_ptr(),
+        bpk_r.data_ptr(), B, W, J, *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream(row_off.device).cuda_stream,
+    )
+    _build.check(err, "phasm_myers_rev_win")
+    myers_rev_win_launches += 1
+    return tuple(outs)
+
+
+def myers_compute_tab(tables: MyersTables, lengths, a_oid, b_oid, d0, W: int, J: int):
+    """The Myers table tier (twin of the reference's
+    ``myers_pallas_compute_tab``): kernel 5 cuts the forward windows out
+    of the tables, window-fed kernel 1 runs on them, ``rev_prep_tab`` cuts
+    the reverse windows, window-fed kernel 2 runs on them.  Returns (cost,
+    i0, iend, jend, win) int32 [B], ``myers_pair``'s contract.  Raises
+    outside the kernels' contract (K_of(W) in 4..7, J % 128 == 0); pads
+    nothing."""
+    _check_shape(W, J)
+    la = lengths[a_oid.long() >> 1]
+    lb = lengths[b_oid.long() >> 1]
+    m0 = plain.fwd_anchor(d0, W)
+    peq_f, bpk_f = myers_fwd_fetch(tables, a_oid, b_oid, (m0 + F_TAB).int(), W, J)
+    cost_f, iend_rel, jend, win = myers_fwd_win(la, lb, d0, peq_f, bpk_f, W, J)
+    iend = (iend_rel + WB * m0).int()
+    peq_r, bpk_r, row_off = plain.rev_prep_tab(
+        tables.peq, tables.bpk, a_oid, b_oid, tables.LA, iend, jend, d0, W, J
+    )
+    cost_r, best_row = myers_rev_win(row_off.int(), iend, jend, peq_r, bpk_r, W, J)
+    return plain.combine(cost_f, iend, jend, win, cost_r, best_row)
+
+
+def myers_overlap_batch_tab(
+    oriented: np.ndarray,
+    lengths: np.ndarray,
+    a_oid: np.ndarray,
+    b_oid: np.ndarray,
+    d0: np.ndarray,
+    band: int = 64,
+    jmax: int = 4096,
+    device="cuda",
+) -> ExtendResult:
+    """``myers_overlap_batch`` through the table tier, from host arrays."""
+    reads = DeviceReads.from_arrays(oriented, lengths, device)
+    a, b, d = _build.index_tensors(reads.device, a_oid, b_oid, d0)
+    tables = MyersTables.from_reads(reads)
+    return _result(myers_compute_tab(tables, reads.lengths, a, b, d, band, jmax))

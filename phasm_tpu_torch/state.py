@@ -3,8 +3,9 @@
 This system has no learned weights.  What stays resident is the oriented
 read matrix, the read lengths and, on CUDA, the per-oriented-read match-mask
 tables the Myers kernels read their Eq words from.  Replaces the reference's
-``put_chunked`` / ``_mesh_put`` upload (``phasm_tpu/overlap/extend.py``) and
-its window-table builds (``myers.build_myers_tables*``).
+``put_chunked`` / ``_mesh_put`` upload (``phasm_tpu/overlap/extend.py``).
+``MyersTables`` holds the table tier's whole-read tables, built only when
+asked (the reference's ``DeviceExtender._ensure_tables``).
 
 ``readset_from_arrays`` and ``alignment_table_from_matrix`` carry state
 across from the reference: they take a reference object's fields as numpy
@@ -20,10 +21,8 @@ import torch
 
 from phasm_tpu_torch.alignments import AlignmentTable
 from phasm_tpu_torch.device import resolve_device
-from phasm_tpu_torch.overlap.myers import WB
+from phasm_tpu_torch.overlap.myers import build_myers_tables, match_mask_table
 from phasm_tpu_torch.reads import ReadSet
-
-_TABLE_CHUNK_CELLS = 1 << 24  # bounds the int64 temporaries of a table build
 
 
 def readset_from_arrays(codes: np.ndarray, lengths: np.ndarray, names=None) -> ReadSet:
@@ -41,40 +40,6 @@ def alignment_table_from_matrix(matrix: np.ndarray, win: np.ndarray | None = Non
     optional [n] window statistic."""
     m = np.asarray(matrix).reshape(-1, 8)
     return AlignmentTable(*(m[:, i] for i in range(8)), win=win)
-
-
-def _to_u32_bits(v: torch.Tensor) -> torch.Tensor:
-    """int64 holding 32-bit words -> int32 with the same bit pattern."""
-    return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
-
-
-def match_mask_table(
-    rows: torch.Tensor, lens: torch.Tensor, reverse: bool = False
-) -> torch.Tensor:
-    """[n, L] uint8 codes + [n] valid lengths -> [n, ceil(L/32), 4] int32
-    (uint32 bits): bit t of word w, plane c <=> x[32w + t] == c and
-    32w + t < lens, where x is the row (reverse=False) or the row reversed
-    within its own length (x[f] = row[lens - 1 - f]).  Positions outside a
-    read never match."""
-    n, L = rows.shape
-    PW = -(-L // WB)
-    out = torch.empty((n, PW, 4), dtype=torch.int32, device=rows.device)
-    t = torch.arange(WB, dtype=torch.int64, device=rows.device)
-    pos = torch.arange(PW * WB, device=rows.device).view(1, PW, WB)
-    f = torch.arange(L, device=rows.device)[None, :]
-    step = max(1, _TABLE_CHUNK_CELLS // (PW * WB))
-    for s in range(0, n, step):
-        x = rows[s : s + step]
-        ln = lens[s : s + step]
-        if reverse:
-            x = x.gather(1, (ln[:, None] - 1 - f).clamp(min=0))
-        x = torch.nn.functional.pad(x, (0, PW * WB - L)).view(-1, PW, WB)
-        valid = pos < ln.view(-1, 1, 1)
-        planes = [
-            (((x == c) & valid).long() << t).sum(dim=-1) for c in range(4)
-        ]
-        out[s : s + step] = _to_u32_bits(torch.stack(planes, dim=-1))
-    return out
 
 
 @dataclasses.dataclass
@@ -117,3 +82,31 @@ class DeviceReads:
         row_len = self.lengths.long().repeat_interleave(2)[: self.codes.shape[0]]
         self.peq_fwd = match_mask_table(self.codes, row_len)
         self.peq_rev = match_mask_table(self.codes, row_len, reverse=True)
+
+
+@dataclasses.dataclass
+class MyersTables:
+    """The Myers table tier's whole-read tables (``myers.build_myers_tables``)
+    on the reads' device.
+
+    peq  [n_o, 8, PW] int32 (uint32 bits): forward and flip match masks
+    bpk  [n_o, 2, BW] int32: 2-bit packed forward and flip codes
+    LA   the oriented matrix's width the tables were built from
+    """
+
+    peq: torch.Tensor
+    bpk: torch.Tensor
+    LA: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.peq.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.peq.nbytes + self.bpk.nbytes
+
+    @classmethod
+    def from_reads(cls, reads: DeviceReads) -> "MyersTables":
+        t = build_myers_tables(reads.codes, reads.lengths)
+        return cls(peq=t["peq"], bpk=t["bpk"], LA=reads.codes.shape[1])

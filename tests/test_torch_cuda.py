@@ -15,7 +15,7 @@ from phasm_tpu_torch.overlap import extend as X
 from phasm_tpu_torch.overlap import myers as plain
 from phasm_tpu_torch.overlap import myers_cuda as MC
 from phasm_tpu_torch.overlap.engine import DeviceExtender
-from phasm_tpu_torch.state import DeviceReads
+from phasm_tpu_torch.state import DeviceReads, MyersTables
 
 from test_myers import as_oriented, random_overlap_case
 
@@ -115,3 +115,86 @@ def test_banded_overlap_cuda_matches_batch(cuda_reads):
     want = X.banded_overlap_batch(*args, band=64, jmax=1024)
     for f in ("a_start", "a_end", "b_start", "b_end", "diffs", "win_cost"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+# -- the Myers table tier: kernel 5 and the window-fed kernels 1 and 2 --
+
+
+@pytest.mark.parametrize("B", [0, 1, 1000])
+def test_fwd_fetch_kernel_matches_plain(cuda_reads, B):
+    """Kernel 5 == its plain gather, windows running past the table rows'
+    end (700-bp reads, J = 1024) and a pair count that is no multiple of
+    anything; B = 0 launches nothing."""
+    W, J = 64, 1024
+    reads, (a, b, d) = cuda_reads(100 + B, B=max(B, 1), la_max=700)
+    a, b, d = a[:B], b[:B], d[:B]
+    tables = MyersTables.from_reads(reads)
+    sfw = (plain.fwd_anchor(d, W) + plain.F_TAB).int()
+    NBLK = J // 32 + plain.K_of(W)
+    if B == 1000:
+        assert bool((sfw + NBLK > tables.peq.shape[2]).any())
+    n0 = MC.myers_fwd_fetch_launches
+    got = MC.myers_fwd_fetch(tables, a, b, sfw, W, J)
+    assert MC.myers_fwd_fetch_launches == n0 + (B > 0)
+    assert got[0].shape == (NBLK, 4, B) and got[1].shape == (J // 16, B)
+    _equal(got, MC.myers_fwd_fetch_plain(tables, a, b, sfw, W, J))
+
+
+@pytest.mark.parametrize("W", [64, 128])
+def test_window_kernels_match_resident_and_plain(cuda_reads, W):
+    """Window-fed kernels 1 and 2 on kernel 5's and rev_prep_tab's windows
+    == the resident kernels on the same pairs == their plain versions."""
+    J = 1024
+    reads, (a, b, d) = cuda_reads(200 + W, B=96, la_max=900)
+    tables = MyersTables.from_reads(reads)
+    la, lb = reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1]
+    m0 = plain.fwd_anchor(d, W)
+    peq_f, bpk_f = MC.myers_fwd_fetch(tables, a, b, (m0 + plain.F_TAB).int(), W, J)
+    n0, r0 = MC.myers_fwd_win_launches, MC.myers_rev_win_launches
+    cost, iend_rel, jend, win = MC.myers_fwd_win(la, lb, d, peq_f, bpk_f, W, J)
+    iend = (iend_rel + 32 * m0).int()
+    _equal((cost, iend, jend, win), MC.myers_fwd(reads, a, b, d, W, J))
+    _equal((cost, iend_rel, jend, win), plain.fwd_win_plain(la, lb, d, peq_f, bpk_f, W, J))
+    peq_r, bpk_r, row_off = plain.rev_prep_tab(
+        tables.peq, tables.bpk, a, b, tables.LA, iend, jend, d, W, J
+    )
+    rev = MC.myers_rev_win(row_off.int(), iend, jend, peq_r, bpk_r, W, J)
+    _equal(rev, MC.myers_rev(reads, a, b, d, iend, jend, W, J))
+    _equal(rev, plain.rev_win_plain(row_off, iend, jend, peq_r, bpk_r, W, J))
+    assert (MC.myers_fwd_win_launches, MC.myers_rev_win_launches) == (n0 + 1, r0 + 1)
+
+
+def test_compute_tab_matches_myers_pair(cuda_reads):
+    """The table tier's entry point == the resident pair path, on tensors
+    and from host arrays."""
+    reads, (a, b, d) = cuda_reads(9, B=80, la_max=1200)
+    tables = MyersTables.from_reads(reads)
+    _equal(MC.myers_compute_tab(tables, reads.lengths, a, b, d, 64, 2048),
+           MC.myers_pair(reads, a, b, d, 64, 2048))
+    args = (reads.codes.cpu().numpy(), reads.lengths.cpu().numpy(),
+            a.cpu().numpy(), b.cpu().numpy(), d.cpu().numpy())
+    got = MC.myers_overlap_batch_tab(*args, band=128, jmax=1024)
+    want = MC.myers_overlap_batch(*args, band=128, jmax=1024)
+    for f in ("a_start", "a_end", "b_start", "b_end", "diffs", "win_cost"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_tab_kernels_reject_what_they_do_not_take(cuda_reads):
+    reads, (a, b, d) = cuda_reads(2, B=4, la_max=200)
+    tables = MyersTables.from_reads(reads)
+    W, J = 64, 1024
+    sfw = (plain.fwd_anchor(d, W) + plain.F_TAB).int()
+    n0 = MC.myers_fwd_fetch_launches
+    for bad in ((a.long(), b, sfw, W, J), (a, b, sfw, 256, J), (a, b, sfw, W, 1000),
+                (a, b[:3], sfw, W, J)):
+        with pytest.raises(ValueError):
+            MC.myers_fwd_fetch(tables, *bad)
+    assert MC.myers_fwd_fetch_launches == n0
+    peq_f, bpk_f = MC.myers_fwd_fetch(tables, a, b, sfw, W, J)
+    la, lb = reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1]
+    for bad in ((la, lb, d, peq_f[:-1], bpk_f), (la, lb, d, peq_f, bpk_f.long()),
+                (la, lb, d, peq_f, bpk_f, 128)):
+        with pytest.raises(ValueError):
+            MC.myers_fwd_win(*bad[:5], bad[5] if len(bad) > 5 else W, J)
+    with pytest.raises(ValueError):
+        MC.myers_compute_tab(tables, reads.lengths, a, b, d, 256, J)
