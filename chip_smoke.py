@@ -10,13 +10,16 @@
 3. holds each kernel against its plain PyTorch version on the card, on
    real candidate batches from the port's seeding: Myers forward and
    reverse on the c4 rung's J = 1024 / 4096 / 8192 buckets at band 64 and
-   its J = 4096 bucket at band 128; the W-band kernel on the c3 rung's
-   whole J = 12288 bucket at band 64 and on c4 pairs at bands 256 and 512.
-   Every integer output must be equal; both times are printed per batch;
+   its J = 4096 bucket at band 128 (kernel times: means of 30 launches);
+   the W-band kernel on the c3 rung's whole J = 12288 bucket at band 64
+   and on c4 pairs at bands 256 and 512 (means of 5). Every integer output
+   must be equal; both times are printed per batch;
 4. drives the main path once, ``phasm_tpu_torch.configs.run_rung`` on the
    c4 rung (200 kb diploid, 1,333 reads) on the card, with every launch
    count set to 0 just before and read just after, and holds its quality
-   columns to the reference ladder's c4 row;
+   columns to the reference ladder's c4 row; prints the pairs and launches
+   of every kernel shape it ran and, from phase 3's times, each kernel's
+   sum over those launches of (card ms - bound ms);
 5. drives the batch entry point ``overlap.extend.banded_overlap_cuda``
    (kernel 4) on c4's W = 64 and W = 128 J = 4096 buckets and c3's W = 64
    J = 12288 bucket, its launch count set to 0 just before and read just
@@ -74,6 +77,9 @@ TAB_BUCKETS = ((64, 4096), (64, 8192), (128, 4096))
 # column
 MYERS_OPS_PER_WORD = 17
 WBAND_OPS_PER_CELL = 14
+# launches in each CUDA-event mean of kernels 1 and 2 in phase 3 (two 5-launch
+# means of one kernel on the same pairs once differed by 7 %)
+MYERS_REPS = 30
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
@@ -299,11 +305,14 @@ def _wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _warm_time(fn, reps: int = 5):
-    """(result, mean ms of reps launches after one warm-up)."""
+def _warm_time(fn, reps: int = 5, warm: int = 3):
+    """(result, mean ms of reps launches after warm calls): a fresh
+    process's first calls still grow the caching allocator (the column
+    sort's scratch) and meet the card's clocks ramping."""
     import torch
 
-    out = fn()
+    for _ in range(warm):
+        out = fn()
     torch.cuda.synchronize()
     return out, _time_ms(fn, reps)
 
@@ -311,12 +320,9 @@ def _warm_time(fn, reps: int = 5):
 def resident_myers_ms(reps: int = 30) -> dict:
     """Kernels 1 and 2 as the main path launches them, on phase 3's c4 Myers
     buckets: {label: [fwd ms, rev ms]}, each the mean of reps launches after
-    a warm-up.  It uses only port APIs older than the table tier, so a copy
-    of this script times an older tree on the same card (run the two in
-    turns):
-        cp chip_smoke.py OLD/chip_smoke_new.py && cd OLD && python -c \
-          "import chip_smoke_new as c; print(c.resident_myers_ms())"
-    """
+    three warm-up calls.  It uses only port APIs older than the table tier, so a copy
+    of this script times an older tree on the same card (``compare_trees``
+    runs the two in turns)."""
     from phasm_tpu_torch._build import index_tensors
     from phasm_tpu_torch.configs import ladder
     from phasm_tpu_torch.overlap import myers_cuda as MC
@@ -335,6 +341,34 @@ def resident_myers_ms(reps: int = 30) -> dict:
     return out
 
 
+def compare_trees(*trees: str, reps: int = 30) -> dict:
+    """Kernels 1 and 2 timed by ``resident_myers_ms(reps)`` in each tree
+    (a directory holding a ``phasm_tpu_torch``, e.g. an older commit
+    unpacked with ``git archive`` into a git-ignored directory), one
+    process each, in turns: the trees in order, then reversed (for two
+    trees: parent, change, change, parent).  This script is copied into
+    each tree as ``_chip_smoke_timer.py``, so every tree is timed by the
+    same code.  Prints each run and returns {tree: {bucket: [fwd ms, rev
+    ms] means}}."""
+    import shutil
+
+    runs: dict = {t: [] for t in trees}
+    for tree in list(trees) + list(trees)[::-1]:
+        shutil.copyfile(__file__, f"{tree}/_chip_smoke_timer.py")
+        out = subprocess.run(
+            [sys.executable, "-c", "import json, _chip_smoke_timer as c; "
+             f"print('TIMES', json.dumps(c.resident_myers_ms({reps})))"],
+            cwd=tree, capture_output=True, text=True, check=True,
+        ).stdout
+        times = json.loads(next(ln for ln in out.splitlines() if ln.startswith("TIMES"))[6:])
+        runs[tree].append(times)
+        _say(f"  {tree}: {json.dumps(times)}")
+    means = {t: {b: [sum(r[b][i] for r in rs) / len(rs) for i in range(2)] for b in rs[0]}
+             for t, rs in runs.items()}
+    _say("means:", json.dumps(means))
+    return means
+
+
 def kernel_checks(int_rate: float) -> dict:
     """Kernels 1-3 against their plain versions on real batches; returns
     {name: [case dicts]}.  Raises on any disagreement."""
@@ -351,11 +385,8 @@ def kernel_checks(int_rate: float) -> dict:
     rungs = {r.name.split("_")[0]: r for r in ladder()}
     results: dict = {k: [] for k in KERNELS}
 
-    def case(name, label, kernel_fn, plain_fn, B, W, J, bound, reps=5):
-        kernel_fn()  # warm-up launch
-        torch.cuda.synchronize()
-        ms = _time_ms(kernel_fn, reps)
-        got = kernel_fn()
+    def case(name, label, kernel_fn, plain_fn, B, W, J, bound, reps):
+        got, ms = _warm_time(kernel_fn, reps)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -383,11 +414,11 @@ def kernel_checks(int_rate: float) -> dict:
         fwd = MC.myers_fwd(r4, a, b, d, W, J)
         case("myers_fwd", f"c4.W{W}.J{J}", lambda: MC.myers_fwd(r4, a, b, d, W, J),
              lambda: plain.fwd_plain(r4.codes, r4.lengths, a, b, d, W, J), B, W, J,
-             myers_fwd_bound(r4, b, W, J, int_rate))
+             myers_fwd_bound(r4, b, W, J, int_rate), MYERS_REPS)
         ie, je = fwd[1], fwd[2]
         case("myers_rev", f"c4.W{W}.J{J}", lambda: MC.myers_rev(r4, a, b, d, ie, je, W, J),
              lambda: plain.rev_plain(r4.codes, r4.lengths, a, b, d, ie, je, W, J), B, W, J,
-             myers_rev_bound(je, W, J, int_rate))
+             myers_rev_bound(je, W, J, int_rate), MYERS_REPS)
 
     c3 = rungs["c3"]
     rs3, ka3, kb3, kd3, la3, lb3 = _candidates(c3, 64)
@@ -401,12 +432,13 @@ def kernel_checks(int_rate: float) -> dict:
         a, b, d = index_tensors(reads.device, ka_[idx], kb_[idx], kd_[idx])
         case("wband", f"{tag}.W{W}.J{J}", lambda: X.wband(reads, a, b, d, W, J),
              lambda: X.wband_plain(reads.codes, reads.lengths, a, b, d, W, J),
-             len(idx), W, J, wband_bound(reads.lengths[b.long() >> 1], W, J, int_rate))
+             len(idx), W, J, wband_bound(reads.lengths[b.long() >> 1], W, J, int_rate), 5)
     return results
 
 
-def main_path() -> dict:
-    """c4 end to end on the card; returns the stats row + launch counts."""
+def main_path() -> tuple[dict, dict]:
+    """c4 end to end on the card; returns (launch counts, {kernel.<name>.W.J
+    counter: value}, the wrappers' pairs and launches per shape)."""
     from phasm_tpu_torch import configs, metrics
     from phasm_tpu_torch.overlap import extend, myers_cuda
 
@@ -430,6 +462,8 @@ def main_path() -> dict:
         {k: v for k, v in counters.items() if k.startswith("overlap.wide_band_retries")}, sort_keys=True))
     _say("c4 launches:", json.dumps(launches), "per stage:", json.dumps(
         {k: row[k] for k in ("launches_overlap", "launches_overlap_warm", "launches_assemble")}))
+    shapes = {k: v for k, v in sorted(counters.items()) if k.startswith("kernel.")}
+    _say("c4 launch shapes (pairs; .launches):", json.dumps(shapes))
     for stage in ("launches_overlap", "launches_assemble"):
         for k in ("myers_fwd", "myers_rev"):
             if row[stage][k] <= 0:
@@ -446,7 +480,37 @@ def main_path() -> dict:
             raise AssertionError(f"{k} {row[k]} below reference {C4_REFERENCE[k]} - {QC_SLACK}")
     if row["qc_allele_purity"] is None or row["qc_allele_purity"] < MIN_PURITY:
         raise AssertionError(f"allele purity {row['qc_allele_purity']} < {MIN_PURITY}")
-    return launches
+    return launches, shapes
+
+
+def main_path_gap(checks: dict, shapes: dict) -> dict:
+    """Per kernel of the main path, the sum over its c4 launches of (card ms
+    - bound ms), from phase 3's batches: a launch of n pairs at (W, J) counts
+    n / pairs of the phase-3 batch at (W, J) times that batch's gap.  A shape
+    phase 3 did not time takes the batch of the same W with the nearest J,
+    scaled by J / J_batch too, and is listed as such."""
+    out = {}
+    for name in ("myers_fwd", "myers_rev", "wband"):
+        timed = {(r["W"], r["J"]): r for r in checks[name] if r["case"].startswith("c4")}
+        total, untimed = 0.0, []
+        for key, pairs in shapes.items():
+            parts = key.split(".")
+            if parts[1] != name or len(parts) != 4:
+                continue
+            W, J = int(parts[2][1:]), int(parts[3][1:])
+            launches = int(shapes[key + ".launches"])
+            rec = timed.get((W, J))
+            scale = 1.0
+            if rec is None:
+                same_w = [r for (w, _), r in timed.items() if w == W] or list(timed.values())
+                rec = min(same_w, key=lambda r: abs(r["J"] - J))
+                scale = J / rec["J"]
+                untimed.append(f"W{W}.J{J} ({launches} launches, {int(pairs)} pairs; "
+                               f"from W{rec['W']}.J{rec['J']})")
+            total += (rec["ms"] - rec["bound_ms"]) * pairs / rec["pairs"] * scale
+        out[name] = dict(gap_ms=total, untimed=untimed)
+    _say("c4 main path, sum over launches of (card ms - bound ms):", json.dumps(out))
+    return out
 
 
 def batch_entry_point(int_rate: float) -> tuple[dict, list]:
@@ -650,7 +714,8 @@ def main() -> int:
     _say("kernels vs plain versions:")
     checks = kernel_checks(int_rate)
     _say("main path:")
-    launches = main_path()
+    launches, shapes = main_path()
+    main_path_gap(checks, shapes)
     _say("batch entry point (kernel 4):")
     dense_launches, checks["wband_dense"] = batch_entry_point(int_rate)
     launches.update(dense_launches)

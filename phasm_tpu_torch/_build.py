@@ -7,7 +7,8 @@ root, where the hash covers the sources' names and contents, so an edited
 kernel is rebuilt and an unchanged one is reused.  The build happens at
 first use.  Every C entry returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.  ``check_launch_inputs`` and
-``index_tensors`` are the wrappers' shared argument plumbing.
+``index_tensors`` are the wrappers' shared argument plumbing;
+``count_shape`` their per-shape launch record.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from phasm_tpu_torch import metrics
+
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "phasm_tpu_torch"
@@ -33,8 +36,8 @@ NVCC_FLAGS = [
 P, I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 ENTRIES = {
-    "phasm_myers_fwd": [P, P, P, P, P, I, P, I, I, I, I, P, P, P, P, P],
-    "phasm_myers_rev": [P, P, P, P, P, P, P, I, P, I, I, I, I, P, P, P],
+    "phasm_myers_fwd": [P, P, P, P, P, P, I, P, I, I, I, I, P, P, P, P, P],
+    "phasm_myers_rev": [P, P, P, P, P, P, P, P, I, P, I, I, I, I, P, P, P],
     "phasm_wband": [P, P, P, P, P, I, I, I, I, P, P],
     "phasm_wband_dense": [P, P, P, P, P, I, I, I, P, P],
     "phasm_myers_fwd_win": [P, P, P, P, P, I, I, I, P, P, P, P, P],
@@ -123,6 +126,15 @@ def load() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def count_shape(name: str, B: int, W: int, J: int) -> None:
+    """Record one launch of kernel name on B pairs at band W, column bucket
+    J: metrics counters ``kernel.<name>.W<W>.J<J>`` (pairs) and
+    ``kernel.<name>.W<W>.J<J>.launches``."""
+    key = f"kernel.{name}.W{W}.J{J}"
+    metrics.incr(key, B)
+    metrics.incr(f"{key}.launches")
 
 
 def check_launch_inputs(reads, table, *idx: torch.Tensor) -> None:

@@ -9,18 +9,37 @@
 // mirrors; every kernel is held equal to that twin, integer for integer.
 //
 // What bounds it on this card: integer ALU work.  Per pair and column the
-// forward pass runs ~17 dependent 32-bit ops on each of K = K_of(W) band
-// words (5 at W=64, 7 at W=128; the reverse pass rev_K = K+3 words); the
-// bytes read are one code byte per column plus K 16-byte match-mask words
-// per 32 columns, far below the ops.  Design: one pair per thread, the K
-// band words and the horizontal carries in registers for the whole column
-// loop (no per-column memory traffic besides the b code), the forward Eq
-// words loaded straight from the per-oriented-read match-mask table (the
-// window is 32-row aligned), the reverse Eq words joined from two adjacent
-// words of the reversed-read table with __funnelshift_r (its anchor is not
-// aligned), popcounts by __popc, and the windowed band minimum a bit scan at
-// mark columns only (1 in 128).  Each thread stops at its own b length: past
-// it the reference's columns are inactive and change nothing.
+// forward pass runs ~17 32-bit ops on each of K = K_of(W) band words (5 at
+// W=64, 7 at W=128; the reverse pass rev_K = K+3 words); the bytes read are
+// one code byte per column plus one 16-byte match-mask word per 32 columns,
+// far below the ops.  One warp holds too few pairs to hide the latency of
+// a word step's dependent ops, so the design is about issue:
+//   - one pair per thread, the K band words and the horizontal carries in
+//     registers for the whole column loop; one-warp blocks (kThreads), so a
+//     batch's warps spread over every SM;
+//   - the resident wrappers hand the kernels a column-order permutation
+//     (overlap/myers_cuda.py), so the 32 pairs of a warp run loops of about
+//     the same length; thread i takes pair order[i] and writes there;
+//   - the 32 columns of a full block run as straight-line groups of
+//     kGroupCols<K> columns, a wavefront (column j+1's word k issues beside
+//     column j's word k+1); the carry between words is the previous word's
+//     bit 31, taken with a funnel shift; the plane select is three SELs on
+//     predicates worked out once a column, with N / PAD masked inside the
+//     word step's LOP3s; the per-column extras are masks and selects, not
+//     branches, and D at the band's bottom is summed from the band when la
+//     enters it instead of carried every column; a block that the pair's
+//     last column cuts short (or whose codes cannot be read as one vector)
+//     runs a one-column loop that stops at the pair's own end, so VP/VN
+//     freeze there as in the reference;
+//   - loads one block ahead, in two steps (issue, then use a block later):
+//     the band moves one word a block, so a block needs one new Eq word
+//     (forward: one aligned 16-byte table word; reverse: two, joined with
+//     __funnelshift_r, as its anchor is not aligned) and 32 b codes
+//     (forward: two or three aligned 16-byte loads from the row at any
+//     alignment, joined; reverse: the same, read down from jend - 1 and
+//     byte-reversed with __byte_perm);
+//   - popcounts by __popc; the windowed band minimum a bit scan at mark
+//     columns only (1 in 128), and none past the window's cap.
 //
 // Two sources feed one DP body each (fwd_pair / rev_pair, templated over
 // where the Eq words and b codes come from):
@@ -29,54 +48,115 @@
 //   Window     the table tier (overlap/myers_cuda.py::myers_compute_tab):
 //              the TPU kernels' own inputs, pre-cut pair-last windows
 //              (peq [NBLK, 4, B] words, bpk [J/16, B] 2-bit packed codes)
-//              made by kernel 5 (csrc/myers_fetch.cu) and rev_prep_tab.
-//              Neighbouring threads read neighbouring words.  Packing maps
-//              PAD to code 0; columns j >= lb are gated off, so it is never
-//              read (the reference's argument, myers_pallas.py::_pack_b).
+//              made by kernel 5 (csrc/myers_fetch.cu) and rev_prep_tab, in
+//              pair order, so neighbouring threads read neighbouring words.
+//              Packing maps PAD to code 0; columns j >= lb are gated off, so
+//              it is never read (the reference's argument,
+//              myers_pallas.py::_pack_b).
 //
 // Launch rules: the current stream, no allocation, no synchronisation; the
-// C entries return cudaGetLastError().
+// C entries return cudaGetLastError().  With PHASM_HOST_SHIM defined (a
+// header that supplies the CUDA built-ins on the host, csrc/host_shim.h)
+// the file builds with a host compiler and the launches run the grid as
+// loops: tests/test_torch_myers_hostbuild.py holds it to the plain versions.
 
 #include <cstdint>
+#ifndef PHASM_HOST_SHIM
 #include <cuda_runtime.h>
+#define PHASM_LAUNCH(kernel, grid, block, stream) kernel<<<grid, block, 0, stream>>>
+#endif
 
 namespace {
 
 constexpr int WB = 32;
 constexpr int MBIG = 1 << 28;
+constexpr int kThreads = 32;  // one warp a block
+
+// Columns of one straight-line group at K band words: 8 up to K = 7 (the
+// forward pass), 4 above (the reverse pass's 8 to 10 words), which keeps an
+// unrolled group body under ~1,100 instructions.  4 and 8 timed within 1 %
+// of each other at K = 7.
+template <int K>
+constexpr int kGroupCols = K <= 7 ? 8 : 4;
 
 __device__ __forceinline__ int k_of(int W) { return (W + 63 + WB - 1) / WB + 1; }
 
 // arithmetic shift == floor division by 32 for negative values too
 __device__ __forceinline__ int fwd_anchor(int d0, int W) { return ((d0 - W / 2) >> 5) - 1; }
 
-__device__ __forceinline__ uint32_t select_eq(const uint4& e, int c) {
-  return c == 0 ? e.x : c == 1 ? e.y : c == 2 ? e.z : c == 3 ? e.w : 0u;
+// A column's b code as two plane-select bits and a mask: codes past 3 (N,
+// PAD) match nothing, so their mask is 0 and the word step ANDs it in
+// (inside the LOP3s it already has).  Worked out once a column, used by
+// every band word: three SELs a word.  (A four-way select chain with 0 for
+// the codes past 3 became divergent branches at rev K = 10 and took 3x.)
+struct Code {
+  bool b0, b1;
+  uint32_t valid;
+};
+
+__device__ __forceinline__ Code code_of(int c) {
+  return Code{(c & 1) != 0, (c & 2) != 0, c < 4 ? 0xFFFFFFFFu : 0u};
+}
+
+// the match word of plane c & 3, before the mask
+__device__ __forceinline__ uint32_t select_eq(const uint4& e, const Code& c) {
+  return c.b1 ? (c.b0 ? e.w : e.z) : (c.b0 ? e.y : e.x);
 }
 
 __device__ __forceinline__ uint4 load_word(const uint4* row, int w, int PW) {
   return (w >= 0 && w < PW) ? row[w] : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// one Myers word update; hp/hn carry in and out; ph/mh are the pre-shift
-// horizontal delta words (bit t: row 32k + t of this column)
-__device__ __forceinline__ void word_step(uint32_t eq, uint32_t& pv, uint32_t& mv,
-                                          uint32_t& hp, uint32_t& hn,
-                                          uint32_t& ph_pre, uint32_t& mh_pre) {
-  const uint32_t xv = eq | mv;
-  const uint32_t eq2 = eq | hn;
+// 32 bytes at p, any alignment, in two steps, so that a block's loads go
+// out a block before their values are used: fetch48 loads the aligned
+// 16-byte words from p's 16-byte boundary (the third only when p is not
+// aligned, and then it holds byte 31; every word loaded holds a byte of
+// [p, p + 32)); join32 picks the 8 little-endian words of [p, p + 32) out
+// of them with a word select and a funnel shift.
+struct Raw48 {
+  uint4 w0, w1, w2;
+  int sh;
+};
+
+__device__ __forceinline__ void fetch48(const uint8_t* p, Raw48& r) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint4* w = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+  r.sh = (int)(a & 15);
+  r.w0 = w[0];
+  r.w1 = w[1];
+  r.w2 = make_uint4(0u, 0u, 0u, 0u);
+  if (r.sh != 0) r.w2 = w[2];
+}
+
+__device__ __forceinline__ void join32(const Raw48& r, uint32_t (&y)[8]) {
+  const uint32_t x[12] = {r.w0.x, r.w0.y, r.w0.z, r.w0.w, r.w1.x, r.w1.y,
+                          r.w1.z, r.w1.w, r.w2.x, r.w2.y, r.w2.z, r.w2.w};
+  const int q = r.sh >> 2, sh = 8 * (r.sh & 3);
+  uint32_t z[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    z[i] = q == 0 ? x[i] : q == 1 ? x[i + 1] : q == 2 ? x[i + 2] : x[i + 3];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y[i] = __funnelshift_r(z[i], z[i + 1], sh);
+}
+
+// one Myers word update on match word sel & valid.  ph_c / mh_c: in, the
+// previous word's pre-shift horizontal delta words (their bit 31 is the
+// carry into this word; the first word gets 0x80000000 / 0); out, this
+// word's (bit t: row 32k + t)
+__device__ __forceinline__ void word_step(uint32_t sel, uint32_t valid, uint32_t& pv,
+                                          uint32_t& mv, uint32_t& ph_c, uint32_t& mh_c) {
+  const uint32_t xv = (sel & valid) | mv;
+  const uint32_t eq2 = (sel & valid) | (mh_c >> 31);
   const uint32_t xh = (((eq2 & pv) + pv) ^ pv) | eq2;
-  uint32_t ph = mv | ~(xh | pv);
-  uint32_t mh = pv & xh;
-  ph_pre = ph;
-  mh_pre = mh;
-  const uint32_t hop = ph >> 31, hon = mh >> 31;
-  ph = (ph << 1) | hp;
-  mh = (mh << 1) | hn;
-  pv = mh | ~(xv | ph);
-  mv = ph & xv;
-  hp = hop;
-  hn = hon;
+  const uint32_t ph = mv | ~(xh | pv);
+  const uint32_t mh = pv & xh;
+  const uint32_t phs = __funnelshift_l(ph_c, ph, 1);  // (ph << 1) | carry
+  const uint32_t mhs = __funnelshift_l(mh_c, mh, 1);
+  pv = mhs | ~(xv | phs);
+  mv = phs & xv;
+  ph_c = ph;
+  mh_c = mh;
 }
 
 template <int K>
@@ -90,35 +170,102 @@ __device__ __forceinline__ void shift_band(uint32_t (&VP)[K], uint32_t (&VN)[K])
   VN[K - 1] = 0u;
 }
 
-// Where a pass reads its inputs.  eq(q): window word q (rows [32q, 32q + 32)
-// above the pass's anchor), all four planes; begin_block(blk) runs before
-// the columns of block blk; code(j): the b code of column j.
+template <int K>
+__device__ __forceinline__ void shift_eq(uint4 (&eq4)[K], const uint4& next) {
+#pragma unroll
+  for (int k = 0; k < K - 1; ++k) eq4[k] = eq4[k + 1];
+  eq4[K - 1] = next;
+}
+
+// A block's 32 b codes in registers; code(v) is column G * g + v of the
+// block after g calls of next_group<G>().
+struct Bytes32 {  // one code a byte
+  uint32_t w[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  __device__ __forceinline__ int code(int v) const {
+    return (int)((w[v >> 2] >> (8 * (v & 3))) & 0xFFu);
+  }
+  template <int G>  // a multiple of 4
+  __device__ __forceinline__ void next_group() {
+#pragma unroll
+    for (int i = 0; i < 8 - G / 4; ++i) w[i] = w[i + G / 4];
+  }
+};
+
+struct Packed32 {  // 2 bits a code, 16 a word
+  uint32_t lo = 0u, hi = 0u;
+  __device__ __forceinline__ int code(int v) const { return (int)((lo >> (2 * v)) & 3u); }
+  template <int G>
+  __device__ __forceinline__ void next_group() {
+    lo = __funnelshift_r(lo, hi, 2 * G);
+    hi >>= 2 * G;
+  }
+};
+
+// Where a pass reads its inputs, each load in two steps (issue, then use),
+// so the next block's loads fly while the current block computes.
+//   fetch_eq(q) / eq_of(raw): window word q (rows [32q, 32q + 32) above
+//     the pass's anchor), all four planes;
+//   vec_ok(blk): block blk's codes may be read as one vector (the pass
+//     checks that the block is full);
+//   fetch_codes(blk, raw) / codes_of(raw, out): that vector;
+//   code(j): the b code of column j, one at a time.
 
 struct ResidentFwd {  // kernel 1 on the main path
+  using Codes = Bytes32;
+  using CodeRaw = Raw48;
+  using EqRaw = uint4;
   const uint4* prow;  // the a row's forward match-mask words
   int PW, m0;
   const uint8_t* brow;
-  __device__ __forceinline__ uint4 eq(int q) const { return load_word(prow, m0 + q, PW); }
-  __device__ __forceinline__ void begin_block(int) {}
+  __device__ __forceinline__ EqRaw fetch_eq(int q) const { return load_word(prow, m0 + q, PW); }
+  static __device__ __forceinline__ uint4 eq_of(const EqRaw& e) { return e; }
+  __device__ __forceinline__ bool vec_ok(int) const { return true; }
+  __device__ __forceinline__ void fetch_codes(int blk, CodeRaw& r) const {
+    fetch48(brow + blk * WB, r);
+  }
+  static __device__ __forceinline__ void codes_of(const CodeRaw& r, Codes& out) {
+    join32(r, out.w);
+  }
   __device__ __forceinline__ int code(int j) const { return brow[j]; }
 };
 
 struct ResidentRev {  // kernel 2 on the main path
+  using Codes = Bytes32;
+  using CodeRaw = Raw48;
+  struct EqRaw {
+    uint4 lo, hi;
+    int sh;
+  };
   const uint4* rrow;  // the a row's reversed match-mask words
   int PW, m0r, fbase;
   const uint8_t* brow;
   int jend, lb;
-  __device__ __forceinline__ uint4 eq(int q) const {
+  __device__ __forceinline__ EqRaw fetch_eq(int q) const {
     const int wr = m0r + q;  // reversed rows [32 wr, 32 wr + 32)
-    if (wr < 0) return make_uint4(0u, 0u, 0u, 0u);  // below the reversed prefix
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    if (wr < 0) return EqRaw{zero, zero, 0};  // below the reversed prefix
     // reversed prefix char r is a[iend-1-r] = reversed-table position fbase + r
     const int bit = fbase + wr * WB;
-    const int w0 = bit >> 5, sh = bit & 31;
-    const uint4 lo = load_word(rrow, w0, PW), hi = load_word(rrow, w0 + 1, PW);
-    return make_uint4(__funnelshift_r(lo.x, hi.x, sh), __funnelshift_r(lo.y, hi.y, sh),
-                      __funnelshift_r(lo.z, hi.z, sh), __funnelshift_r(lo.w, hi.w, sh));
+    const int w0 = bit >> 5;
+    return EqRaw{load_word(rrow, w0, PW), load_word(rrow, w0 + 1, PW), bit & 31};
   }
-  __device__ __forceinline__ void begin_block(int) {}
+  static __device__ __forceinline__ uint4 eq_of(const EqRaw& e) {
+    return make_uint4(__funnelshift_r(e.lo.x, e.hi.x, e.sh), __funnelshift_r(e.lo.y, e.hi.y, e.sh),
+                      __funnelshift_r(e.lo.z, e.hi.z, e.sh),
+                      __funnelshift_r(e.lo.w, e.hi.w, e.sh));
+  }
+  // the block's highest source lies inside b (its lowest is >= 0 in a full block)
+  __device__ __forceinline__ bool vec_ok(int blk) const { return jend - 1 - blk * WB < lb; }
+  // sources jend - 32 (blk + 1) .. jend - 1 - 32 blk, upward
+  __device__ __forceinline__ void fetch_codes(int blk, CodeRaw& r) const {
+    fetch48(brow + jend - (blk + 1) * WB, r);
+  }
+  static __device__ __forceinline__ void codes_of(const CodeRaw& r, Codes& out) {
+    uint32_t y[8];
+    join32(r, y);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out.w[i] = __byte_perm(y[7 - i], 0u, 0x0123);
+  }
   __device__ __forceinline__ int code(int j) const {
     const int src = jend - 1 - j;  // reversed b prefix
     return src < lb ? brow[src] : 4;
@@ -126,29 +273,54 @@ struct ResidentRev {  // kernel 2 on the main path
 };
 
 struct Window {  // the table tier: pair-last windows, pair p of B
+  using Codes = Packed32;
+  using CodeRaw = Packed32;
+  using EqRaw = uint4;
   const uint32_t* peq;
   const int* bpk;
   int B, p;
-  uint64_t bw = 0;  // the current block's 32 packed codes
-  __device__ __forceinline__ uint4 eq(int q) const {
+  __device__ __forceinline__ EqRaw fetch_eq(int q) const {
     const uint32_t* w = peq + (size_t)q * 4 * B + p;
     return make_uint4(w[0], w[B], w[2 * (size_t)B], w[3 * (size_t)B]);
   }
-  __device__ __forceinline__ void begin_block(int blk) {
+  static __device__ __forceinline__ uint4 eq_of(const EqRaw& e) { return e; }
+  __device__ __forceinline__ bool vec_ok(int) const { return true; }
+  __device__ __forceinline__ void fetch_codes(int blk, CodeRaw& out) const {
     const int* w = bpk + (size_t)(2 * blk) * B + p;
-    bw = (uint64_t)(uint32_t)w[0] | ((uint64_t)(uint32_t)w[B] << 32);
+    out.lo = (uint32_t)w[0];
+    out.hi = (uint32_t)w[B];
   }
-  __device__ __forceinline__ int code(int j) const { return (int)(bw >> (2 * (j & 31))) & 3; }
+  static __device__ __forceinline__ void codes_of(const CodeRaw& r, Codes& out) { out = r; }
+  __device__ __forceinline__ int code(int j) const {
+    return (int)(((uint32_t)bpk[(size_t)(j >> 4) * B + p] >> (2 * (j & 15))) & 3u);
+  }
 };
+
+// One forward column: the K word steps, and the horizontal delta at row la
+// (mk[k]: the bit of row la in word k, or 0; anc: la is the anchor row),
+// returned.
+template <int K>
+__device__ __forceinline__ int fwd_column(Code c, const uint4 (&eq4)[K], const uint32_t (&mk)[K],
+                                          uint32_t anc, uint32_t (&VP)[K], uint32_t (&VN)[K]) {
+  uint32_t phc = 0x80000000u, mhc = 0u, selp = anc, selm = 0u;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    word_step(select_eq(eq4[k], c), c.valid, VP[k], VN[k], phc, mhc);
+    selp |= phc & mk[k];
+    selm |= mhc & mk[k];
+  }
+  return (int)(selp != 0u) - (int)(selm != 0u);
+}
 
 // The forward pass of pair p; iend is written as bi + iend_base (the
 // resident kernel: absolute rows; the window kernel: anchor-relative, as the
 // TPU kernel returns it).
 template <int K, class Src>
-__device__ __forceinline__ void fwd_pair(Src& src, int p, int la, int lb, int d0, int W, int J,
-                                         int iend_base, int* __restrict__ out_cost,
+__device__ __forceinline__ void fwd_pair(const Src& src, int p, int la, int lb, int d0, int W,
+                                         int J, int iend_base, int* __restrict__ out_cost,
                                          int* __restrict__ out_iend, int* __restrict__ out_jend,
                                          int* __restrict__ out_win) {
+  constexpr int G = kGroupCols<K>;
   const int NB = J / WB;
   const int m0 = fwd_anchor(d0, W);
   const int la_rel = la - m0 * WB;
@@ -160,47 +332,76 @@ __device__ __forceinline__ void fwd_pair(Src& src, int p, int la, int lb, int d0
   uint32_t VP[K], VN[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) VP[k] = VN[k] = 0u;
-  int s_top = 0, s_bot = 0;
+  int s_top = 0;  // D at the anchor row
   bool below = la_rel > K * WB;
   int s_la = (la_rel >= 0 && la_rel <= K * WB) ? 0 : MBIG;
-  int bc = MBIG, bn = 1 << 30, bi = 0, bj = 0;
+  // the running best at row la: later columns win ties (their negsum is
+  // smaller), so bn and bi follow from bc and bj after the loop
+  int bc = MBIG, bj = 0;
   int wprev = 0, wmax = 0, wprev2 = 0, wmax2 = 0;
 
   const int nblk = min(NB, (lb + WB - 1) / WB);
+  uint4 eq4[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) eq4[k] = Src::eq_of(src.fetch_eq(k));
+  typename Src::Codes cb;
+  typename Src::CodeRaw nraw;
+  bool full = nblk > 0 && WB <= lb && src.vec_ok(0);
+  if (full) {
+    src.fetch_codes(0, nraw);
+    Src::codes_of(nraw, cb);
+  }
+
   for (int blk = 0; blk < nblk; ++blk) {
-    uint4 eq4[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) eq4[k] = src.eq(blk + k);
-    src.begin_block(blk);
-    const int kla_rel = kla - blk;
-    const bool in_win = la_rel >= blk * WB && la_rel <= (blk + K) * WB && !below;
-    const int ncol = min(WB, lb - blk * WB);
-    for (int u = 0; u < ncol; ++u) {
-      const int j = blk * WB + u;
-      const int c = src.code(j);
-      uint32_t hp = 1u, hn = 0u;
-      int dla = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        uint32_t ph, mh;
-        word_step(select_eq(eq4[k], c), VP[k], VN[k], hp, hn, ph, mh);
-        if (k == kla_rel) dla = (int)((ph >> tla) & 1u) - (int)((mh >> tla) & 1u);
-      }
-      s_top += 1;
-      s_bot += (int)hp - (int)hn;
-      if (la_rel == blk * WB) dla = 1;  // la is the anchor row
-      if (in_win) {
-        s_la += dla;
-        if (s_la < MBIG) {
-          const int negsum = -(la_rel + j + 1);
-          if (s_la < bc || (s_la == bc && negsum < bn)) {
-            bc = s_la; bn = negsum; bi = la_rel; bj = j + 1;
-          }
-        }
-      }
+    // the next block's loads go out before this block computes
+    const bool more = blk + 1 < nblk;
+    typename Src::EqRaw neq{};
+    bool nfull = false;
+    if (more) {
+      neq = src.fetch_eq(blk + K);
+      nfull = (blk + 2) * WB <= lb && src.vec_ok(blk + 1);
+      if (nfull) src.fetch_codes(blk + 1, nraw);
     }
 
-    if ((blk & 3) == 3) {  // windowed band-min mark at jj = (blk + 1) * 32
+    const int kla_rel = kla - blk;
+    const bool in_win = la_rel >= blk * WB && la_rel <= (blk + K) * WB && !below;
+    const bool is_anchor = la_rel == blk * WB;  // la is the anchor row
+    const uint32_t anc = (in_win && is_anchor) ? 1u : 0u;
+    // a column updates the best when s_la <= min(bc, cap): cap keeps every
+    // column out of the window, and s_la = MBIG, from it
+    const int cap = in_win ? MBIG - 1 : -1;
+    uint32_t mk[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) mk[k] = (in_win && !is_anchor && k == kla_rel) ? (1u << tla) : 0u;
+    const int jb = blk * WB + 1;  // jend of the block's first column
+
+    if (full) {
+#pragma unroll 1
+      for (int g = 0; g < WB / G; ++g) {
+#pragma unroll
+        for (int v = 0; v < G; ++v) {
+          s_la += fwd_column<K>(code_of(cb.code(v)), eq4, mk, anc, VP, VN);
+          const bool upd = s_la <= min(bc, cap);
+          bc = upd ? s_la : bc;
+          bj = upd ? jb + g * G + v : bj;
+        }
+        cb.template next_group<G>();
+      }
+      s_top += WB;
+    } else {
+      const int ncol = min(WB, lb - blk * WB);
+      for (int u = 0; u < ncol; ++u) {
+        s_la += fwd_column<K>(code_of(src.code(blk * WB + u)), eq4, mk, anc, VP, VN);
+        const bool upd = s_la <= min(bc, cap);
+        bc = upd ? s_la : bc;
+        bj = upd ? jb + u : bj;
+      }
+      s_top += ncol;
+    }
+
+    // windowed band-min mark at jj = (blk + 1) * 32; past win_cap a mark
+    // only feeds wprev / wprev2 for later marks, which are past it too
+    if ((blk & 3) == 3 && (blk + 1) * WB <= win_cap) {
       const int base = blk * WB;
       int bm = (base >= neg_floor && base <= la_rel) ? s_top : MBIG;
       int val = s_top;
@@ -212,12 +413,11 @@ __device__ __forceinline__ void fwd_pair(Src& src, int p, int la, int lb, int d0
           if (rel >= neg_floor && rel <= la_rel) bm = min(bm, val);
         }
       }
-      const bool in_cap = (blk + 1) * WB <= win_cap;
       if ((blk & 7) == 7) {
-        if (in_cap) wmax = max(wmax, bm - wprev);
+        wmax = max(wmax, bm - wprev);
         wprev = bm;
       } else {
-        if (in_cap && blk != 3) wmax2 = max(wmax2, bm - wprev2);
+        if (blk != 3) wmax2 = max(wmax2, bm - wprev2);
         wprev2 = bm;
       }
     }
@@ -225,15 +425,27 @@ __device__ __forceinline__ void fwd_pair(Src& src, int p, int la, int lb, int d0
     if ((blk + 1) * WB < lb) {  // block-end shift, frozen at the pair's lb
       s_top += __popc(VP[0]) - __popc(VN[0]);
       shift_band<K>(VP, VN);
-      s_bot += WB;
       const int edge = (blk + 1 + K) * WB;
       if (below && la_rel <= edge) {  // la enters through the new word
+        int s_bot = s_top;  // D at the band's bottom row: the vertical deltas summed
+#pragma unroll
+        for (int k = 0; k < K; ++k) s_bot += __popc(VP[k]) - __popc(VN[k]);
         s_la = s_bot - (edge - la_rel);
         below = false;
       }
     }
+    if (more) {
+      shift_eq<K>(eq4, Src::eq_of(neq));
+      if (nfull) Src::codes_of(nraw, cb);
+      full = nfull;
+    }
   }
 
+  int bi = 0, bn = 1 << 30;
+  if (bc < MBIG) {
+    bi = la_rel;
+    bn = -(la_rel + bj);
+  }
   // final-column extraction from the frozen band: min cost, ties to the
   // largest row (smallest negsum)
   if (lb <= J) {
@@ -251,7 +463,7 @@ __device__ __forceinline__ void fwd_pair(Src& src, int p, int la, int lb, int d0
     }
     if (m1 < MBIG) {
       const int negsum = -(best_rel + lb);
-      if (m1 < bc || (m1 == bc && negsum < bn)) { bc = m1; bn = negsum; bi = best_rel; bj = lb; }
+      if (m1 < bc || (m1 == bc && negsum < bn)) { bc = m1; bi = best_rel; bj = lb; }
     }
   }
   out_cost[p] = bc;
@@ -261,38 +473,51 @@ __device__ __forceinline__ void fwd_pair(Src& src, int p, int la, int lb, int d0
 }
 
 template <int K>
-__global__ void myers_fwd_kernel(const int* __restrict__ a_oid, const int* __restrict__ b_oid,
-                                 const int* __restrict__ d0s, const int* __restrict__ lengths,
-                                 const uint8_t* __restrict__ codes, int LA,
-                                 const uint4* __restrict__ peq, int PW, int B, int W, int J,
-                                 int* __restrict__ out_cost, int* __restrict__ out_iend,
-                                 int* __restrict__ out_jend, int* __restrict__ out_win) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
+__global__ void __launch_bounds__(kThreads)
+    myers_fwd_kernel(const int64_t* __restrict__ order, const int* __restrict__ a_oid,
+                     const int* __restrict__ b_oid, const int* __restrict__ d0s,
+                     const int* __restrict__ lengths, const uint8_t* __restrict__ codes, int LA,
+                     const uint4* __restrict__ peq, int PW, int B, int W, int J,
+                     int* __restrict__ out_cost, int* __restrict__ out_iend,
+                     int* __restrict__ out_jend, int* __restrict__ out_win) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const int p = (int)order[i];
   const int ao = a_oid[p], bo = b_oid[p], d0 = d0s[p];
   const int m0 = fwd_anchor(d0, W);
-  ResidentFwd src{peq + (size_t)ao * PW, PW, m0, codes + (size_t)bo * LA};
+  const ResidentFwd src{peq + (size_t)ao * PW, PW, m0, codes + (size_t)bo * LA};
   fwd_pair<K>(src, p, lengths[ao >> 1], lengths[bo >> 1], d0, W, J, m0 * WB, out_cost, out_iend,
               out_jend, out_win);
 }
 
 template <int K>
-__global__ void myers_fwd_win_kernel(const int* __restrict__ las, const int* __restrict__ lbs,
-                                     const int* __restrict__ d0s,
-                                     const uint32_t* __restrict__ peq,
-                                     const int* __restrict__ bpk, int B, int W, int J,
-                                     int* __restrict__ out_cost, int* __restrict__ out_iend,
-                                     int* __restrict__ out_jend, int* __restrict__ out_win) {
+__global__ void __launch_bounds__(kThreads)
+    myers_fwd_win_kernel(const int* __restrict__ las, const int* __restrict__ lbs,
+                         const int* __restrict__ d0s, const uint32_t* __restrict__ peq,
+                         const int* __restrict__ bpk, int B, int W, int J,
+                         int* __restrict__ out_cost, int* __restrict__ out_iend,
+                         int* __restrict__ out_jend, int* __restrict__ out_win) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= B) return;
-  Window src{peq, bpk, B, p};
+  const Window src{peq, bpk, B, p};
   fwd_pair<K>(src, p, las[p], lbs[p], d0s[p], W, J, 0, out_cost, out_iend, out_jend, out_win);
+}
+
+// One reverse column: the K word steps.
+template <int K>
+__device__ __forceinline__ void rev_column(Code c, const uint4 (&eq4)[K], uint32_t (&VP)[K],
+                                           uint32_t (&VN)[K]) {
+  uint32_t phc = 0x80000000u, mhc = 0u;
+#pragma unroll
+  for (int k = 0; k < K; ++k) word_step(select_eq(eq4[k], c), c.valid, VP[k], VN[k], phc, mhc);
 }
 
 // The reverse pass of pair p from anchor row row_off (= 32 * m0r).
 template <int K, class Src>
-__device__ __forceinline__ void rev_pair(Src& src, int p, int row_off, int iend, int jend, int J,
-                                         int* __restrict__ out_cost, int* __restrict__ out_row) {
+__device__ __forceinline__ void rev_pair(const Src& src, int p, int row_off, int iend, int jend,
+                                         int J, int* __restrict__ out_cost,
+                                         int* __restrict__ out_row) {
+  constexpr int G = kGroupCols<K>;
   const int NB = J / WB;
   // anchored start D[row, 0] = |row|: VP where the next row is > 0
   uint32_t VP[K], VN[K];
@@ -306,25 +531,47 @@ __device__ __forceinline__ void rev_pair(Src& src, int p, int row_off, int iend,
   int s_top = row_off < 0 ? -row_off : row_off;
 
   const int nblk = min(NB, (max(jend, 0) + WB - 1) / WB);
+  uint4 eq4[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) eq4[k] = Src::eq_of(src.fetch_eq(k));
+  typename Src::Codes cb;
+  typename Src::CodeRaw nraw;
+  bool full = nblk > 0 && WB <= jend && src.vec_ok(0);
+  if (full) {
+    src.fetch_codes(0, nraw);
+    Src::codes_of(nraw, cb);
+  }
+
   for (int blk = 0; blk < nblk; ++blk) {
-    uint4 eq4[K];
+    const bool more = blk + 1 < nblk;
+    typename Src::EqRaw neq{};
+    bool nfull = false;
+    if (more) {
+      neq = src.fetch_eq(blk + K);
+      nfull = (blk + 2) * WB <= jend && src.vec_ok(blk + 1);
+      if (nfull) src.fetch_codes(blk + 1, nraw);
+    }
+    if (full) {
+#pragma unroll 1
+      for (int g = 0; g < WB / G; ++g) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) eq4[k] = src.eq(blk + k);
-    src.begin_block(blk);
-    const int ncol = min(WB, jend - blk * WB);
-    for (int u = 0; u < ncol; ++u) {
-      const int c = src.code(blk * WB + u);
-      uint32_t hp = 1u, hn = 0u;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        uint32_t ph, mh;
-        word_step(select_eq(eq4[k], c), VP[k], VN[k], hp, hn, ph, mh);
+        for (int v = 0; v < G; ++v) rev_column<K>(code_of(cb.code(v)), eq4, VP, VN);
+        cb.template next_group<G>();
       }
-      s_top += 1;
+      s_top += WB;
+    } else {
+      const int ncol = min(WB, jend - blk * WB);
+      for (int u = 0; u < ncol; ++u) rev_column<K>(code_of(src.code(blk * WB + u)), eq4, VP, VN);
+      s_top += ncol;
     }
     if ((blk + 1) * WB < jend) {
       s_top += __popc(VP[0]) - __popc(VN[0]);
       shift_band<K>(VP, VN);
+    }
+    if (more) {
+      shift_eq<K>(eq4, Src::eq_of(neq));
+      if (nfull) Src::codes_of(nraw, cb);
+      full = nfull;
     }
   }
 
@@ -346,52 +593,55 @@ __device__ __forceinline__ void rev_pair(Src& src, int p, int row_off, int iend,
 }
 
 template <int K>
-__global__ void myers_rev_kernel(const int* __restrict__ a_oid, const int* __restrict__ b_oid,
-                                 const int* __restrict__ d0s, const int* __restrict__ iends,
-                                 const int* __restrict__ jends, const int* __restrict__ lengths,
-                                 const uint8_t* __restrict__ codes, int LA,
-                                 const uint4* __restrict__ peq_rev, int PW, int B, int W, int J,
-                                 int* __restrict__ out_cost, int* __restrict__ out_row) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
+__global__ void __launch_bounds__(kThreads)
+    myers_rev_kernel(const int64_t* __restrict__ order, const int* __restrict__ a_oid,
+                     const int* __restrict__ b_oid, const int* __restrict__ d0s,
+                     const int* __restrict__ iends, const int* __restrict__ jends,
+                     const int* __restrict__ lengths, const uint8_t* __restrict__ codes, int LA,
+                     const uint4* __restrict__ peq_rev, int PW, int B, int W, int J,
+                     int* __restrict__ out_cost, int* __restrict__ out_row) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const int p = (int)order[i];
   const int ao = a_oid[p], bo = b_oid[p], d0 = d0s[p];
   const int iend = iends[p], jend = jends[p];
   // reverse-window anchor (myers.rev_anchor)
   const int m0r = (((iend - jend) - WB * fwd_anchor(d0, W) - WB * k_of(W)) >> 5) - 1;
-  ResidentRev src{peq_rev + (size_t)ao * PW, PW, m0r, lengths[ao >> 1] - iend,
-                  codes + (size_t)bo * LA, jend, lengths[bo >> 1]};
+  const ResidentRev src{peq_rev + (size_t)ao * PW, PW, m0r, lengths[ao >> 1] - iend,
+                        codes + (size_t)bo * LA, jend, lengths[bo >> 1]};
   rev_pair<K>(src, p, m0r * WB, iend, jend, J, out_cost, out_row);
 }
 
 template <int K>
-__global__ void myers_rev_win_kernel(const int* __restrict__ row_offs,
-                                     const int* __restrict__ iends, const int* __restrict__ jends,
-                                     const uint32_t* __restrict__ peq,
-                                     const int* __restrict__ bpk, int B, int J,
-                                     int* __restrict__ out_cost, int* __restrict__ out_row) {
+__global__ void __launch_bounds__(kThreads)
+    myers_rev_win_kernel(const int* __restrict__ row_offs, const int* __restrict__ iends,
+                         const int* __restrict__ jends, const uint32_t* __restrict__ peq,
+                         const int* __restrict__ bpk, int B, int J, int* __restrict__ out_cost,
+                         int* __restrict__ out_row) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= B) return;
-  Window src{peq, bpk, B, p};
+  const Window src{peq, bpk, B, p};
   rev_pair<K>(src, p, row_offs[p], iends[p], jends[p], J, out_cost, out_row);
 }
 
-constexpr int kThreads = 128;
+int blocks(int B) { return (B + kThreads - 1) / kThreads; }
 
 template <int K>
-cudaError_t launch_fwd(const int* a, const int* b, const int* d0, const int* len,
+cudaError_t launch_fwd(const int64_t* o, const int* a, const int* b, const int* d0, const int* len,
                        const uint8_t* codes, int LA, const uint4* peq, int PW, int B, int W,
                        int J, int* c, int* ie, int* je, int* wn, cudaStream_t s) {
-  myers_fwd_kernel<K><<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      a, b, d0, len, codes, LA, peq, PW, B, W, J, c, ie, je, wn);
+  PHASM_LAUNCH(myers_fwd_kernel<K>, blocks(B), kThreads, s)(
+      o, a, b, d0, len, codes, LA, peq, PW, B, W, J, c, ie, je, wn);
   return cudaGetLastError();
 }
 
 template <int K>
-cudaError_t launch_rev(const int* a, const int* b, const int* d0, const int* ie, const int* je,
-                       const int* len, const uint8_t* codes, int LA, const uint4* peq, int PW,
-                       int B, int W, int J, int* c, int* row, cudaStream_t s) {
-  myers_rev_kernel<K><<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      a, b, d0, ie, je, len, codes, LA, peq, PW, B, W, J, c, row);
+cudaError_t launch_rev(const int64_t* o, const int* a, const int* b, const int* d0, const int* ie,
+                       const int* je, const int* len, const uint8_t* codes, int LA,
+                       const uint4* peq, int PW, int B, int W, int J, int* c, int* row,
+                       cudaStream_t s) {
+  PHASM_LAUNCH(myers_rev_kernel<K>, blocks(B), kThreads, s)(
+      o, a, b, d0, ie, je, len, codes, LA, peq, PW, B, W, J, c, row);
   return cudaGetLastError();
 }
 
@@ -399,7 +649,7 @@ template <int K>
 cudaError_t launch_fwd_win(const int* la, const int* lb, const int* d0, const uint32_t* peq,
                            const int* bpk, int B, int W, int J, int* c, int* ie, int* je,
                            int* wn, cudaStream_t s) {
-  myers_fwd_win_kernel<K><<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+  PHASM_LAUNCH(myers_fwd_win_kernel<K>, blocks(B), kThreads, s)(
       la, lb, d0, peq, bpk, B, W, J, c, ie, je, wn);
   return cudaGetLastError();
 }
@@ -407,7 +657,7 @@ cudaError_t launch_fwd_win(const int* la, const int* lb, const int* d0, const ui
 template <int K>
 cudaError_t launch_rev_win(const int* ro, const int* ie, const int* je, const uint32_t* peq,
                            const int* bpk, int B, int J, int* c, int* row, cudaStream_t s) {
-  myers_rev_win_kernel<K><<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+  PHASM_LAUNCH(myers_rev_win_kernel<K>, blocks(B), kThreads, s)(
       ro, ie, je, peq, bpk, B, J, c, row);
   return cudaGetLastError();
 }
@@ -417,34 +667,35 @@ int host_k_of(int W) { return (W + 63 + WB - 1) / WB + 1; }
 }  // namespace
 
 // W must satisfy 4 <= K_of(W) <= 7 (W <= 128); the wrapper checks it.
-extern "C" int phasm_myers_fwd(const int* a_oid, const int* b_oid, const int* d0,
-                               const int* lengths, const uint8_t* codes, int LA,
+// order: an int64 permutation of [0, B); thread i runs pair order[i].
+extern "C" int phasm_myers_fwd(const int64_t* order, const int* a_oid, const int* b_oid,
+                               const int* d0, const int* lengths, const uint8_t* codes, int LA,
                                const uint32_t* peq, int PW, int B, int W, int J, int* cost,
                                int* iend, int* jend, int* win, void* stream) {
   if (B == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   auto t = reinterpret_cast<const uint4*>(peq);
   switch (host_k_of(W)) {
-    case 4: return launch_fwd<4>(a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
-    case 5: return launch_fwd<5>(a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
-    case 6: return launch_fwd<6>(a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
-    case 7: return launch_fwd<7>(a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
+    case 4: return launch_fwd<4>(order, a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
+    case 5: return launch_fwd<5>(order, a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
+    case 6: return launch_fwd<6>(order, a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
+    case 7: return launch_fwd<7>(order, a_oid, b_oid, d0, lengths, codes, LA, t, PW, B, W, J, cost, iend, jend, win, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int phasm_myers_rev(const int* a_oid, const int* b_oid, const int* d0,
-                               const int* iend, const int* jend, const int* lengths,
+extern "C" int phasm_myers_rev(const int64_t* order, const int* a_oid, const int* b_oid,
+                               const int* d0, const int* iend, const int* jend, const int* lengths,
                                const uint8_t* codes, int LA, const uint32_t* peq_rev, int PW,
                                int B, int W, int J, int* cost, int* best_row, void* stream) {
   if (B == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   auto t = reinterpret_cast<const uint4*>(peq_rev);
   switch (host_k_of(W) + 3) {  // rev_K(W) = K_of(W) + 3
-    case 7: return launch_rev<7>(a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
-    case 8: return launch_rev<8>(a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
-    case 9: return launch_rev<9>(a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
-    case 10: return launch_rev<10>(a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
+    case 7: return launch_rev<7>(order, a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
+    case 8: return launch_rev<8>(order, a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
+    case 9: return launch_rev<9>(order, a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
+    case 10: return launch_rev<10>(order, a_oid, b_oid, d0, iend, jend, lengths, codes, LA, t, PW, B, W, J, cost, best_row, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

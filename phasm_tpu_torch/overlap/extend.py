@@ -211,6 +211,7 @@ def wband(reads, a_oid, b_oid, d0, W: int, J: int):
         )
         _build.check(err, "phasm_wband")
         wband_launches += 1
+        _build.count_shape("wband", B, W, J)
     return tuple(out[i] for i in range(5))
 
 

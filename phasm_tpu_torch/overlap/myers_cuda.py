@@ -5,7 +5,13 @@ forward window fetch) feeding the window-fed variants of kernels 1 and 2.
 Each wrapper runs the plain torch version (``overlap/myers.py``) when its
 tensors lie on the CPU and launches its CUDA kernel when they lie on the
 card; on the card it launches or raises, never falls back.  Each keeps a
-plain launch count, bumped only where its kernel is launched.  The main
+plain launch count, bumped only where its kernel is launched, and records
+its pairs and launches per shape (``_build.count_shape``).  The resident
+kernels 1 and 2 run their pairs in column order (``column_order``): sorted
+by the columns each will run, longest first, so the 32 pairs of a warp run
+loops of about the same length and the longest warps start first; each
+pair's outputs land at its own index.  The window-fed kernels keep the
+pair order, since their pair-last windows are laid out by it.  The main
 path (``DeviceExtender``) runs the resident kernels 1 and 2 only; the table
 tier is the entry point ``myers_compute_tab``, and its three counts stay out
 of ``configs.launch_counts()``.
@@ -41,6 +47,16 @@ def _check_shape(W: int, J: int) -> None:
         raise ValueError(f"jmax must be 128-aligned, got {J}")
 
 
+def column_order(cols, J: int) -> torch.Tensor:
+    """The launch order of the resident kernels: pair indices (int64, on
+    cols' device) by the 32-column blocks each pair runs, most first (the
+    key floor(min(cols, J - 1) / 32) groups pairs as the block count does).
+    The key is one byte up to J = 8192 (two above), which sorts faster than
+    the int32 columns do."""
+    key = torch.uint8 if J <= 256 * WB else torch.int16
+    return torch.argsort((cols.clamp(max=J - 1) >> 5).to(key), descending=True)
+
+
 def myers_fwd(reads: DeviceReads, a_oid, b_oid, d0, W: int, J: int):
     """Kernel 1: (cost_f, iend, jend, win) int32 [B]."""
     global myers_fwd_launches
@@ -49,11 +65,12 @@ def myers_fwd(reads: DeviceReads, a_oid, b_oid, d0, W: int, J: int):
     _build.check_launch_inputs(reads, _require_table(reads.peq_fwd), a_oid, b_oid, d0)
     _check_shape(W, J)
     B = a_oid.shape[0]
-    outs = [torch.empty(B, dtype=torch.int32, device=reads.device) for _ in range(4)]
+    outs = torch.empty((4, B), dtype=torch.int32, device=reads.device).unbind()
     if B == 0:
-        return tuple(outs)
+        return outs
+    order = column_order(reads.lengths[b_oid >> 1], J)
     err = _build.load().phasm_myers_fwd(
-        a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(),
+        order.data_ptr(), a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(),
         reads.lengths.data_ptr(), reads.codes.data_ptr(), reads.codes.shape[1],
         reads.peq_fwd.data_ptr(), reads.peq_fwd.shape[1], B, W, J,
         *(o.data_ptr() for o in outs),
@@ -61,7 +78,8 @@ def myers_fwd(reads: DeviceReads, a_oid, b_oid, d0, W: int, J: int):
     )
     _build.check(err, "phasm_myers_fwd")
     myers_fwd_launches += 1
-    return tuple(outs)
+    _build.count_shape("myers_fwd", B, W, J)
+    return outs
 
 
 def myers_rev(reads: DeviceReads, a_oid, b_oid, d0, iend, jend, W: int, J: int):
@@ -75,11 +93,12 @@ def myers_rev(reads: DeviceReads, a_oid, b_oid, d0, iend, jend, W: int, J: int):
     _build.check_launch_inputs(reads, _require_table(reads.peq_rev), a_oid, b_oid, d0, iend, jend)
     _check_shape(W, J)
     B = a_oid.shape[0]
-    outs = [torch.empty(B, dtype=torch.int32, device=reads.device) for _ in range(2)]
+    outs = torch.empty((2, B), dtype=torch.int32, device=reads.device).unbind()
     if B == 0:
-        return tuple(outs)
+        return outs
+    order = column_order(jend, J)
     err = _build.load().phasm_myers_rev(
-        a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(),
+        order.data_ptr(), a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(),
         iend.data_ptr(), jend.data_ptr(),
         reads.lengths.data_ptr(), reads.codes.data_ptr(), reads.codes.shape[1],
         reads.peq_rev.data_ptr(), reads.peq_rev.shape[1], B, W, J,
@@ -88,7 +107,8 @@ def myers_rev(reads: DeviceReads, a_oid, b_oid, d0, iend, jend, W: int, J: int):
     )
     _build.check(err, "phasm_myers_rev")
     myers_rev_launches += 1
-    return tuple(outs)
+    _build.count_shape("myers_rev", B, W, J)
+    return outs
 
 
 def myers_pair(reads: DeviceReads, a_oid, b_oid, d0, W: int, J: int):
@@ -168,6 +188,7 @@ def myers_fwd_fetch(tables: MyersTables, a_oid, b_oid, sfw, W: int, J: int):
     )
     _build.check(err, "phasm_myers_fwd_fetch")
     myers_fwd_fetch_launches += 1
+    _build.count_shape("myers_fwd_fetch", B, W, J)
     return peq_f, bpk_f
 
 
@@ -192,6 +213,7 @@ def myers_fwd_win(la, lb, d0, peq_f, bpk_f, W: int, J: int):
     )
     _build.check(err, "phasm_myers_fwd_win")
     myers_fwd_win_launches += 1
+    _build.count_shape("myers_fwd_win", B, W, J)
     return tuple(outs)
 
 
@@ -216,6 +238,7 @@ def myers_rev_win(row_off, iend, jend, peq_r, bpk_r, W: int, J: int):
     )
     _build.check(err, "phasm_myers_rev_win")
     myers_rev_win_launches += 1
+    _build.count_shape("myers_rev_win", B, W, J)
     return tuple(outs)
 
 

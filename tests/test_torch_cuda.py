@@ -27,9 +27,16 @@ def cuda_reads():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
-    def make(seed, B=64, la_max=700, err=0.1):
+    def make(seed, B=64, la_max=700, err=0.1, cut=False):
+        """cut: b lengths cut to 0..71 on the first pairs and to random
+        lengths on the next 32, so loops end inside a column group and
+        before the first block's end."""
         rng = np.random.default_rng(seed)
         a, b, la, lb, d0 = random_overlap_case(rng, B=B, la_max=la_max, err=err)
+        if cut:
+            short = [1, 7, 3, 9, 0, 8, 33, 71][:B]
+            lb[: len(short)] = short
+            lb[8:40] = np.minimum(lb[8:40], rng.integers(10, 400, lb[8:40].shape[0]))
         oriented, lengths, a_oid, b_oid = as_oriented(a, b, la, lb)
         reads = DeviceReads.from_arrays(oriented, lengths, "cuda")
         return reads, index_tensors(reads.device, a_oid, b_oid, d0)
@@ -42,10 +49,31 @@ def _equal(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize("W", [64, 128])
-def test_myers_kernels_match_plain(cuda_reads, W):
-    reads, (a, b, d) = cuda_reads(W)
-    J = 1024
+# K_of(W) = 4..7 and rev_K(W) = 7..10; one pair, a warp and one more, many
+# warps; pairs that end inside the last 1024 columns at J = 2048
+MYERS_W = [20, 64, 96, 128]
+MYERS_B = [1, 33, 200]
+MYERS_J = [1024, 2048]
+# b lengths: some past J at J = 1024, some past 1024 at J = 2048
+LA_MAX = {1024: 1124, 2048: 1748}
+
+
+def _myers_case(cuda_reads, W, B, J):
+    """Mixed pair lengths (some under 8 columns or off the 8-column groups)
+    in an oriented matrix whose width is no multiple of 16."""
+    reads, idx = cuda_reads(1000 * W + 10 * B + J // 1024, B=B, la_max=LA_MAX[J], cut=True)
+    assert reads.codes.shape[1] % 16 != 0
+    return reads, idx
+
+
+@pytest.mark.parametrize("J", MYERS_J)
+@pytest.mark.parametrize("B", MYERS_B)
+@pytest.mark.parametrize("W", MYERS_W)
+def test_myers_kernels_match_plain(cuda_reads, W, B, J):
+    """Kernels 1 and 2 (pairs launched in column order) == their plain
+    versions; the same batch in reversed pair order gives the same
+    per-pair outputs."""
+    reads, (a, b, d) = _myers_case(cuda_reads, W, B, J)
     n0, r0 = MC.myers_fwd_launches, MC.myers_rev_launches
     fwd = MC.myers_fwd(reads, a, b, d, W, J)
     _equal(fwd, plain.fwd_plain(reads.codes, reads.lengths, a, b, d, W, J))
@@ -53,6 +81,9 @@ def test_myers_kernels_match_plain(cuda_reads, W):
     rev = MC.myers_rev(reads, a, b, d, ie, je, W, J)
     _equal(rev, plain.rev_plain(reads.codes, reads.lengths, a, b, d, ie, je, W, J))
     assert (MC.myers_fwd_launches, MC.myers_rev_launches) == (n0 + 1, r0 + 1)
+    flip = [t.flip(0).contiguous() for t in (a, b, d, ie, je)]
+    _equal(MC.myers_fwd(reads, *flip[:3], W, J), [t.flip(0) for t in fwd])
+    _equal(MC.myers_rev(reads, *flip, W, J), [t.flip(0) for t in rev])
 
 
 @pytest.mark.parametrize("W", [20, 64, 96, 128, 200, 256, 512])
@@ -140,12 +171,13 @@ def test_fwd_fetch_kernel_matches_plain(cuda_reads, B):
     _equal(got, MC.myers_fwd_fetch_plain(tables, a, b, sfw, W, J))
 
 
-@pytest.mark.parametrize("W", [64, 128])
-def test_window_kernels_match_resident_and_plain(cuda_reads, W):
+@pytest.mark.parametrize("J", MYERS_J)
+@pytest.mark.parametrize("B", MYERS_B)
+@pytest.mark.parametrize("W", MYERS_W)
+def test_window_kernels_match_resident_and_plain(cuda_reads, W, B, J):
     """Window-fed kernels 1 and 2 on kernel 5's and rev_prep_tab's windows
     == the resident kernels on the same pairs == their plain versions."""
-    J = 1024
-    reads, (a, b, d) = cuda_reads(200 + W, B=96, la_max=900)
+    reads, (a, b, d) = _myers_case(cuda_reads, W, B, J)
     tables = MyersTables.from_reads(reads)
     la, lb = reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1]
     m0 = plain.fwd_anchor(d, W)

@@ -1,0 +1,171 @@
+"""The CUDA source of Myers kernels 1 and 2 (``csrc/myers.cu``), built for
+the host with g++ through ``csrc/host_shim.h`` and its grid run as loops,
+== the plain torch versions, integer for integer: the resident kernels
+against ``fwd_plain`` / ``rev_plain``, the window-fed ones against
+``fwd_win_plain`` / ``rev_win_plain`` and the resident ones.
+
+This guards the kernels' index arithmetic (the column-order permutation,
+the unrolled column groups and their tail, the vector loads at any row
+alignment, the freeze at the pair's own end) on a machine without a card.
+The library is cached in the git-ignored ``build/phasm_tpu_torch/``, keyed
+by the two files' contents and the flags.
+"""
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from phasm_tpu_torch._build import ENTRIES, index_tensors
+from phasm_tpu_torch.overlap import myers as plain
+from phasm_tpu_torch.overlap import myers_cuda as MC
+from phasm_tpu_torch.state import DeviceReads, MyersTables
+
+from test_myers import as_oriented, random_overlap_case
+
+_CSRC = Path(__file__).resolve().parent.parent / "phasm_tpu_torch" / "csrc"
+_BUILD = Path(__file__).resolve().parent.parent / "build" / "phasm_tpu_torch"
+_FLAGS = ["-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++", "-DPHASM_HOST_SHIM",
+          "-include", str(_CSRC / "host_shim.h")]
+J = 1024
+
+
+@pytest.fixture(scope="module")
+def lib():
+    h = hashlib.sha256()
+    for name in ("host_shim.h", "myers.cu"):
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(_FLAGS[:-1]).encode())
+    so = _BUILD / f"libmyers_host_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(["g++", *_FLAGS, "-o", str(tmp), str(_CSRC / "myers.cu")], check=True)
+        os.replace(tmp, so)
+    out = ctypes.CDLL(str(so))
+    for name, argtypes in ENTRIES.items():
+        if hasattr(out, name):
+            getattr(out, name).argtypes = argtypes
+            getattr(out, name).restype = ctypes.c_int
+    return out
+
+
+def _case(seed, W):
+    """About 200 random pairs, with lb cut to 0..9 and to lengths off the
+    8-column groups on some, in a matrix whose rows are not 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    a, b, la, lb, d0 = random_overlap_case(rng, B=200, la_max=1100)
+    lb[:8] = [0, 1, 3, 7, 8, 9, 33, 71]
+    lb[8:40] = np.minimum(lb[8:40], rng.integers(10, 400, 32))
+    oriented, lengths, a_oid, b_oid = as_oriented(a, b, la, lb)
+    assert oriented.shape[1] % 16 != 0
+    reads = DeviceReads.from_arrays(oriented, lengths, "cpu")
+    reads._build_tables()
+    return reads, index_tensors(reads.device, a_oid, b_oid, d0)
+
+
+def _padded_codes(reads):
+    """The code matrix in a buffer with room past its end: the kernels' last
+    aligned 16-byte word of a row may reach up to 15 bytes beyond it."""
+    flat = reads.codes.reshape(-1)
+    buf = torch.zeros(flat.numel() + 64, dtype=torch.uint8)
+    buf[: flat.numel()] = flat
+    return buf
+
+
+def _outs(n, B):
+    return [torch.full((B,), -7, dtype=torch.int32) for _ in range(n)]
+
+
+def _fwd(lib, reads, order, a, b, d, W):
+    B = a.shape[0]
+    outs = _outs(4, B)
+    buf = _padded_codes(reads)
+    err = lib.phasm_myers_fwd(
+        order.data_ptr(), a.data_ptr(), b.data_ptr(), d.data_ptr(), reads.lengths.data_ptr(),
+        buf.data_ptr(), reads.codes.shape[1], reads.peq_fwd.data_ptr(), reads.peq_fwd.shape[1],
+        B, W, J, *(o.data_ptr() for o in outs), None,
+    )
+    assert err == 0
+    return outs
+
+
+def _rev(lib, reads, order, a, b, d, ie, je, W):
+    B = a.shape[0]
+    outs = _outs(2, B)
+    buf = _padded_codes(reads)
+    err = lib.phasm_myers_rev(
+        order.data_ptr(), a.data_ptr(), b.data_ptr(), d.data_ptr(), ie.data_ptr(), je.data_ptr(),
+        reads.lengths.data_ptr(), buf.data_ptr(), reads.codes.shape[1], reads.peq_rev.data_ptr(),
+        reads.peq_rev.shape[1], B, W, J, *(o.data_ptr() for o in outs), None,
+    )
+    assert err == 0
+    return outs
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+@pytest.mark.parametrize("W", [20, 64, 128])
+def test_host_built_kernels_match_plain(lib, W):
+    reads, (a, b, d) = _case(W, W)
+    B = a.shape[0]
+    lb = reads.lengths[b.long() >> 1]
+    # the wrappers' column order, and the identity
+    order = MC.column_order(lb, J)
+    ident = torch.arange(B)
+    fwd = _fwd(lib, reads, order, a, b, d, W)
+    _equal(fwd, plain.fwd_plain(reads.codes, reads.lengths, a, b, d, W, J))
+    _equal(_fwd(lib, reads, ident, a, b, d, W), fwd)
+    ie, je = fwd[1], fwd[2]
+    rev_order = MC.column_order(je, J)
+    rev = _rev(lib, reads, rev_order, a, b, d, ie, je, W)
+    _equal(rev, plain.rev_plain(reads.codes, reads.lengths, a, b, d, ie, je, W, J))
+    _equal(_rev(lib, reads, ident, a, b, d, ie, je, W), rev)
+
+    # window-fed: kernel 5's windows (plain gather) -> 1w -> rev_prep_tab -> 2w
+    tables = MyersTables.from_reads(reads)
+    la = reads.lengths[a.long() >> 1]
+    m0 = plain.fwd_anchor(d, W)
+    peq_f, bpk_f = plain.fwd_fetch(tables.peq, tables.bpk, a, b, (m0 + plain.F_TAB).int(), W, J)
+    fw = _outs(4, B)
+    assert lib.phasm_myers_fwd_win(
+        la.data_ptr(), lb.data_ptr(), d.data_ptr(), peq_f.data_ptr(), bpk_f.data_ptr(),
+        B, W, J, *(o.data_ptr() for o in fw), None) == 0
+    _equal(fw, plain.fwd_win_plain(la, lb, d, peq_f, bpk_f, W, J))
+    _equal((fw[0], fw[1] + 32 * m0, fw[2], fw[3]), fwd)
+    peq_r, bpk_r, row_off = plain.rev_prep_tab(
+        tables.peq, tables.bpk, a, b, tables.LA, ie, je, d, W, J)
+    row_off = row_off.int()
+    rw = _outs(2, B)
+    assert lib.phasm_myers_rev_win(
+        row_off.data_ptr(), ie.data_ptr(), je.data_ptr(), peq_r.data_ptr(), bpk_r.data_ptr(),
+        B, W, J, *(o.data_ptr() for o in rw), None) == 0
+    _equal(rw, plain.rev_win_plain(row_off, ie, je, peq_r, bpk_r, W, J))
+    _equal(rw, rev)
+
+
+def test_host_built_kernels_match_nothing_on_n(lib):
+    """An N (code 4) in b matches no a base in kernels 1 and 2, as in their
+    plain versions (the window-fed ones read it as an A, like the
+    reference's table tier, so they are left out here)."""
+    W = 64
+    rng = np.random.default_rng(4)
+    a, b, la, lb, d0 = random_overlap_case(rng, B=60, la_max=500)
+    b[(b < 4) & (rng.random(b.shape) < 0.02)] = 4
+    oriented, lengths, a_oid, b_oid = as_oriented(a, b, la, lb)
+    reads = DeviceReads.from_arrays(oriented, lengths, "cpu")
+    reads._build_tables()
+    a, b, d = index_tensors(reads.device, a_oid, b_oid, d0)
+    order = MC.column_order(reads.lengths[b.long() >> 1], J)
+    fwd = _fwd(lib, reads, order, a, b, d, W)
+    _equal(fwd, plain.fwd_plain(reads.codes, reads.lengths, a, b, d, W, J))
+    ie, je = fwd[1], fwd[2]
+    rev = _rev(lib, reads, MC.column_order(je, J), a, b, d, ie, je, W)
+    _equal(rev, plain.rev_plain(reads.codes, reads.lengths, a, b, d, ie, je, W, J))
