@@ -37,7 +37,17 @@
    their plain versions on the W = 64, J = 4096 bucket, exactly, with the
    kernels' times beside the resident kernels', kernel 5's bound (bytes)
    and the time of one torch indexing expression that cuts the same peq
-   window out of a zero-padded table (``library_ms``).
+   window out of a zero-padded table (``library_ms``);
+7. drives the Myers tab2 tier ``overlap.myers_cuda.myers_compute_tab2``
+   (kernels 1 and 2 in their tab2 bodies, which cut their windows out of
+   the blocked table themselves) on c4's W = 64 and W = 128 J = 1024
+   buckets and on c4's W = 64 pairs that fit J = 2048, its two launch
+   counts set to 0 just before and read just after; then holds it against
+   ``myers_pair`` and ``myers_compute_tab``, the windows the tab2 kernels
+   cut (their plain cut) against the table tier's, and the tab2 kernels
+   against the window-fed and resident kernels on every batch and their
+   plain versions on W = 64, J = 1024, exactly, with the kernels' times
+   beside theirs and the three entry points' wall times.
 
 Each kernel's bound is the larger of its integer operations over the
 card's INT32 rate (SMs x 64 lanes x the maximum SM clock) and its bytes
@@ -66,10 +76,18 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "myers_fwd_fetch": ("phasm_tpu_torch/csrc/myers_fetch.cu", "scripts/myers_dma_proto.py:24"),
     "myers_fwd_win": ("phasm_tpu_torch/csrc/myers.cu", "phasm_tpu/overlap/myers_pallas.py:157"),
     "myers_rev_win": ("phasm_tpu_torch/csrc/myers.cu", "phasm_tpu/overlap/myers_pallas.py:450"),
+    "myers_fwd_tab2": ("phasm_tpu_torch/csrc/myers.cu",
+                       "phasm_tpu/overlap/myers_pallas.py:157 (tab2=True)"),
+    "myers_rev_tab2": ("phasm_tpu_torch/csrc/myers.cu",
+                       "phasm_tpu/overlap/myers_pallas.py:450 (tab2=True)"),
 }
 # c4's (band, column bucket)s that the reference runs through its Myers
 # table tier (myers_pallas_compute_tab): Myers-routed, rejected by tab2_fits
 TAB_BUCKETS = ((64, 4096), (64, 8192), (128, 4096))
+# the tab2 tier's batches: c4's (band, column bucket)s that the reference
+# runs through myers_pallas_compute_tab2 (tab2_fits), and W = 64 at J =
+# 2048, the widest J tab2 takes (c4's W = 64 pairs whose need fits it)
+TAB2_BATCHES = ((64, 1024), (128, 1024), (64, 2048))
 
 # integer ops per unit of work, counted from the kernel sources: the Myers
 # word step (csrc/myers.cu word_step + select_eq) per band word and column;
@@ -280,6 +298,39 @@ def myers_win_bound(lens, K: int, J: int, out_bytes: int, int_rate: float) -> di
     nbytes = (16 * int((blocks + K - 1).clamp(min=0).sum()) + 8 * int(blocks.sum())
               + (12 + out_bytes) * cols.numel())
     return _bound(MYERS_OPS_PER_WORD * K * int(cols.sum()), nbytes, int_rate)
+
+
+def tab2_fwd_bound(lb, W: int, J: int, int_rate: float) -> dict:
+    """Tab2 kernel 1: K words x 17 ops per column; bytes: the words each
+    pair loads, one 16-byte table word (four planes) per window word it
+    reads (K, then one a block), 8 bytes of packed b a block, 20 bytes of
+    indices and lengths in and 16 of results out."""
+    from phasm_tpu_torch.overlap.myers import K_of
+
+    K = K_of(W)
+    cols = _cols(lb, J)
+    blocks = (cols + 31) // 32
+    words = K + (blocks - 1).clamp(min=0)
+    nbytes = 16 * int(words.sum()) + 8 * int(blocks.sum()) + 36 * cols.numel()
+    return _bound(MYERS_OPS_PER_WORD * K * int(cols.sum()), nbytes, int_rate)
+
+
+def tab2_rev_bound(jend, m0r, W: int, J: int, int_rate: float) -> dict:
+    """Tab2 kernel 2: rev_K words x 17 ops per column, plus its cut's
+    funnel shifts (csrc/myers.cu Tab2Rev: 4 per window word it loads, 2 per
+    block of packed codes); bytes: two 16-byte table words per window word
+    at or above the reversed prefix (words k < -m0r are 0, not loaded),
+    three packed flip-b words a block, 20 bytes in and 8 out per pair."""
+    from phasm_tpu_torch.overlap.myers import rev_K
+
+    K = rev_K(W)
+    cols = _cols(jend, J)
+    blocks = (cols + 31) // 32
+    words = K + (blocks - 1).clamp(min=0)
+    loaded = (words - (-m0r.long()).clamp(min=0)).clamp(min=0)
+    nbytes = 32 * int(loaded.sum()) + 12 * int(blocks.sum()) + 28 * cols.numel()
+    ops = MYERS_OPS_PER_WORD * K * int(cols.sum()) + 4 * int(loaded.sum()) + 2 * int(blocks.sum())
+    return _bound(ops, nbytes, int_rate)
 
 
 def _event_once(fn):
@@ -701,6 +752,112 @@ def table_tier(int_rate: float) -> tuple[dict, dict]:
     return launches, cases
 
 
+def tab2_tier(int_rate: float) -> tuple[dict, dict]:
+    """The tab2 tier: ``myers_compute_tab2`` on TAB2_BATCHES, its two launch
+    counts set to 0 just before and read just after; then the checks and
+    timings on the same pairs.  Returns (launches, {name: case dicts}).
+    Raises on any disagreement."""
+    import numpy as np
+
+    from phasm_tpu_torch._build import index_tensors
+    from phasm_tpu_torch.configs import ladder
+    from phasm_tpu_torch.overlap import myers as plain
+    from phasm_tpu_torch.overlap import myers_cuda as MC
+    from phasm_tpu_torch.overlap.routing import route, tab2_fits
+    from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
+
+    c4 = next(r for r in ladder() if r.name.startswith("c4"))
+    rs, ka, kb, kd, la, lb = _candidates(c4, 64)
+    reads = DeviceReads.from_reads(rs, "cuda")
+    t2, build_ms = _event_once(lambda: MyersBlockedTables.from_reads(reads))
+    _say(f"c4 blocked table: win {list(t2.win.shape)} (n_o {t2.n_o}, LA {t2.LA}), "
+         f"{t2.nbytes} bytes, built in {build_ms:.1f} ms")
+    tables = MyersTables.from_reads(reads)  # the table tier, held beside it
+    batches = []
+    for W, J in TAB2_BATCHES:
+        assert route("myers_pallas", W, J) == "myers" and tab2_fits(W, J), (W, J)
+        if J == 2048:  # no c4 bucket: the W = 64 pairs whose need fits
+            idx = np.nonzero(np.minimum(lb, la - kd + W).astype(np.int64) + W <= J)[0]
+        else:
+            idx = _bucket(c4, ka, kd, la, lb, W, J)
+        batches.append((W, J, *index_tensors(reads.device, ka[idx], kb[idx], kd[idx])))
+
+    MC.myers_fwd_tab2_launches = MC.myers_rev_tab2_launches = 0
+    entry = []  # (outputs, wall ms) of each batch's first call
+    for W, J, a, b, d in batches:
+        before = (MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches)
+        entry.append(_wall_ms(lambda: MC.myers_compute_tab2(t2, reads.lengths, a, b, d, W, J)))
+        if (MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches) != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"myers_compute_tab2 W{W} J{J} did not launch both tab2 kernels")
+    launches = {"myers_fwd_tab2": MC.myers_fwd_tab2_launches,
+                "myers_rev_tab2": MC.myers_rev_tab2_launches}
+    _say("tab2 tier launches:", json.dumps(launches))
+
+    cases: dict = {k: [] for k in launches}
+    for (W, J, a, b, d), (out, wall_ms) in zip(batches, entry):
+        label, B = f"c4.W{W}.J{J}", a.shape[0]
+        want, pair_ms = _wall_ms(lambda: MC.myers_pair(reads, a, b, d, W, J))
+        tab_out, tab_ms = _wall_ms(lambda: MC.myers_compute_tab(tables, reads.lengths, a, b, d, W, J))
+        _, warm_ms = _wall_ms(lambda: MC.myers_compute_tab2(t2, reads.lengths, a, b, d, W, J))
+        entry_err = max(_max_abs_err(out, want), _max_abs_err(out, tab_out))
+
+        # tab2 kernel 1 beside the window-fed and resident kernel 1
+        la_t, lb_t = reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1]
+        m0 = plain.fwd_anchor(d, W)
+        fw, ms_f = _warm_time(lambda: MC.myers_fwd_tab2(t2, reads.lengths, a, b, d, W, J), MYERS_REPS)
+        win1 = plain.fwd_prep_tab(tables.peq, tables.bpk, a, b, la_t, d, W, J)
+        win2 = plain.fwd_prep_tab2(t2.win, reads.lengths, a, b, d, t2.LA, W, J)
+        fwin, ms_fw = _warm_time(lambda: MC.myers_fwd_win(la_t, lb_t, d, win1[0], win1[1], W, J),
+                                 MYERS_REPS)
+        fres, ms_fr = _warm_time(lambda: MC.myers_fwd(reads, a, b, d, W, J), MYERS_REPS)
+        iend, jend = (fw[1] + 32 * m0).int(), fw[2]
+        err_f = max(_max_abs_err(win2, win1), _max_abs_err(fw, fwin),
+                    _max_abs_err((fw[0], iend, fw[2], fw[3]), fres))
+
+        # tab2 kernel 2 beside the window-fed kernel 2 on rev_prep_tab's windows
+        rw, ms_r = _warm_time(lambda: MC.myers_rev_tab2(t2, a, b, d, iend, jend, W, J), MYERS_REPS)
+        rwin1, prep_ms = _event_once(lambda: plain.rev_prep_tab(
+            tables.peq, tables.bpk, a, b, tables.LA, iend, jend, d, W, J))
+        rwin2, prep2_ms = _event_once(lambda: plain.rev_prep_tab2(
+            t2.win, a, b, t2.LA, iend, jend, d, W, J))
+        row_off = rwin1[2].int()
+        rwn, ms_rw = _warm_time(lambda: MC.myers_rev_win(row_off, iend, jend, rwin1[0], rwin1[1], W, J),
+                                MYERS_REPS)
+        rres, ms_rr = _warm_time(lambda: MC.myers_rev(reads, a, b, d, iend, jend, W, J), MYERS_REPS)
+        err_r = max(_max_abs_err(rwin2, rwin1), _max_abs_err(rw, rwn), _max_abs_err(rw, rres))
+        plain_f = plain_r = None
+        if (W, J) == (64, 1024):  # the plain Myers core costs seconds a batch
+            pf, plain_f = _event_once(lambda: plain.fwd_tab2_plain(
+                t2.win, reads.lengths, a, b, d, t2.LA, W, J))
+            pr, plain_r = _event_once(lambda: plain.rev_tab2_plain(
+                t2.win, a, b, t2.LA, iend, jend, d, W, J))
+            err_f = max(err_f, _max_abs_err(fw, pf))
+            err_r = max(err_r, _max_abs_err(rw, pr))
+        walls = dict(entry_wall_ms=wall_ms, entry_warm_ms=warm_ms, myers_pair_wall_ms=pair_ms,
+                     compute_tab_wall_ms=tab_ms)
+        cases["myers_fwd_tab2"].append(dict(
+            case=label, pairs=B, W=W, J=J, ms=ms_f, plain_ms=plain_f, window_fed_ms=ms_fw,
+            resident_ms=ms_fr, max_abs_err=max(err_f, entry_err), **walls,
+            **tab2_fwd_bound(lb_t, W, J, int_rate)))
+        m0r = plain.rev_anchor(iend.long(), jend.long(), d.long(), W)
+        cases["myers_rev_tab2"].append(dict(
+            case=label, pairs=B, W=W, J=J, ms=ms_r, plain_ms=plain_r, window_fed_ms=ms_rw,
+            resident_ms=ms_rr, rev_prep_tab_ms=prep_ms, rev_prep_tab2_ms=prep2_ms,
+            max_abs_err=max(err_r, entry_err), **tab2_rev_bound(jend, m0r, W, J, int_rate)))
+        _say(f"  tab2 tier {label}: pairs={B}; entry point {wall_ms:.2f} ms wall (first call), "
+             f"{warm_ms:.2f} ms (again) vs myers_pair {pair_ms:.2f} ms and myers_compute_tab "
+             f"{tab_ms:.2f} ms (max_abs_err {entry_err})")
+        _say(f"  tab2 tier {label}: tab2 fwd {ms_f:.3f} ms vs window-fed {ms_fw:.3f} ms and resident "
+             f"{ms_fr:.3f} ms, bound {cases['myers_fwd_tab2'][-1]['bound_ms']:.4f} ms; tab2 rev "
+             f"{ms_r:.3f} ms vs window-fed {ms_rw:.3f} ms and resident {ms_rr:.3f} ms, bound "
+             f"{cases['myers_rev_tab2'][-1]['bound_ms']:.4f} ms; rev_prep_tab {prep_ms:.3f} ms "
+             f"(plain tab2 cut {prep2_ms:.3f} ms); plain fwd {plain_f} ms, plain rev {plain_r} ms; "
+             f"max_abs_err fwd {err_f}, rev {err_r}")
+        if max(entry_err, err_f, err_r) != 0:
+            raise AssertionError(f"tab2 tier {label}: disagrees with the other tiers or a plain version")
+    return launches, cases
+
+
 def main() -> int:
     import torch
 
@@ -723,6 +880,10 @@ def main() -> int:
     tab_launches, tab_checks = table_tier(int_rate)
     launches.update(tab_launches)
     checks.update(tab_checks)
+    _say("tab2 tier (kernels 1 and 2, tab2 bodies):")
+    tab2_launches, tab2_checks = tab2_tier(int_rate)
+    launches.update(tab2_launches)
+    checks.update(tab2_checks)
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         recs = checks[name]

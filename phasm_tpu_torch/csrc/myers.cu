@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernels phasm_tpu/overlap/myers_pallas.py::_make_myers_fwd
 // (kernel 1, forward pass) and ::_make_myers_rev (kernel 2, reverse start
-// recovery), in their plain and tab2 variants (resident kernels) and, fed
-// the same pre-cut windows, in the tab variant (window kernels).  Semantics
+// recovery): their plain bodies (the resident kernels, and, fed the same
+// pre-cut windows, the window kernels) and their tab2 bodies (the tab2
+// kernels, which cut their windows out of the blocked table themselves).  Semantics
 // are those of the jnp cores phasm_tpu/overlap/myers.py::myers_fwd_core /
 // myers_rev_core, which the plain torch twin phasm_tpu_torch/overlap/myers.py
 // mirrors; every kernel is held equal to that twin, integer for integer.
@@ -53,6 +54,17 @@
 //              Packing maps PAD to code 0; columns j >= lb are gated off, so
 //              it is never read (the reference's argument,
 //              myers_pallas.py::_pack_b).
+//   Tab2*      the tab2 tier (overlap/myers_cuda.py::myers_compute_tab2):
+//              each pair thread reads its window words straight out of the
+//              blocked table (overlap/myers.py::build_myers_tables_blocked),
+//              where the TPU kernel DMAs per-pair coarse row blocks into VMEM
+//              and shifts them there.  Forward word k is one 16-byte load
+//              (four planes) at word s % 32 + k of the pair's row block; the
+//              reverse word k funnels two such loads by the per-pair bit
+//              offset, and is 0 below the reversed prefix (k < -m0r); the
+//              reverse codes funnel two packed flip-b words.  Every row index
+//              is clamped to the range the reference clips it to, so each
+//              pair reads what the reference reads.  Pair order, as Window.
 //
 // Launch rules: the current stream, no allocation, no synchronisation; the
 // C entries return cudaGetLastError().  With PHASM_HOST_SHIM defined (a
@@ -70,6 +82,9 @@ namespace {
 
 constexpr int WB = 32;
 constexpr int MBIG = 1 << 28;
+constexpr int F_TAB = 16;  // table front-pad words (overlap/myers.py::F_TAB)
+constexpr int BK = 32;     // peq words a blocked-table row (4 planes each)
+constexpr int BKB = 128;   // packed-b words a blocked-table row
 constexpr int kThreads = 32;  // one warp a block
 
 // Columns of one straight-line group at K band words: 8 up to K = 7 (the
@@ -229,13 +244,22 @@ struct ResidentFwd {  // kernel 1 on the main path
   __device__ __forceinline__ int code(int j) const { return brow[j]; }
 };
 
+// A reverse window word: the four planes of (hi:lo) >> sh, the reverse
+// anchor being at any bit offset.
+struct EqPair {
+  uint4 lo, hi;
+  int sh;
+};
+
+__device__ __forceinline__ uint4 funnel_eq(const EqPair& e) {
+  return make_uint4(__funnelshift_r(e.lo.x, e.hi.x, e.sh), __funnelshift_r(e.lo.y, e.hi.y, e.sh),
+                    __funnelshift_r(e.lo.z, e.hi.z, e.sh), __funnelshift_r(e.lo.w, e.hi.w, e.sh));
+}
+
 struct ResidentRev {  // kernel 2 on the main path
   using Codes = Bytes32;
   using CodeRaw = Raw48;
-  struct EqRaw {
-    uint4 lo, hi;
-    int sh;
-  };
+  using EqRaw = EqPair;
   const uint4* rrow;  // the a row's reversed match-mask words
   int PW, m0r, fbase;
   const uint8_t* brow;
@@ -249,11 +273,7 @@ struct ResidentRev {  // kernel 2 on the main path
     const int w0 = bit >> 5;
     return EqRaw{load_word(rrow, w0, PW), load_word(rrow, w0 + 1, PW), bit & 31};
   }
-  static __device__ __forceinline__ uint4 eq_of(const EqRaw& e) {
-    return make_uint4(__funnelshift_r(e.lo.x, e.hi.x, e.sh), __funnelshift_r(e.lo.y, e.hi.y, e.sh),
-                      __funnelshift_r(e.lo.z, e.hi.z, e.sh),
-                      __funnelshift_r(e.lo.w, e.hi.w, e.sh));
-  }
+  static __device__ __forceinline__ uint4 eq_of(const EqRaw& e) { return funnel_eq(e); }
   // the block's highest source lies inside b (its lowest is >= 0 in a full block)
   __device__ __forceinline__ bool vec_ok(int blk) const { return jend - 1 - blk * WB < lb; }
   // sources jend - 32 (blk + 1) .. jend - 1 - 32 blk, upward
@@ -293,6 +313,72 @@ struct Window {  // the table tier: pair-last windows, pair p of B
   static __device__ __forceinline__ void codes_of(const CodeRaw& r, Codes& out) { out = r; }
   __device__ __forceinline__ int code(int j) const {
     return (int)(((uint32_t)bpk[(size_t)(j >> 4) * B + p] >> (2 * (j & 15))) & 3u);
+  }
+};
+
+// The blocked table's rows: peq rows are 32 words of four planes (uint4),
+// packed-b rows 128 words.  clamp: the reference's clip of a row index.
+__device__ __forceinline__ int clamp_row(int r, int lo, int hi) { return min(max(r, lo), hi); }
+
+struct Tab2Fwd {  // the tab2 tier's forward pass: pair p's words of the blocked table
+  using Codes = Packed32;
+  using CodeRaw = Packed32;
+  using EqRaw = uint4;
+  const uint4* peq;      // the table as peq rows
+  const uint32_t* brow;  // the pair's packed forward b row (OFF_BF + b_oid)
+  int row0, srem, row_hi;  // a_oid * NBb + s / 32, s % 32 (s = m0 + F_TAB), OFF_R - 1
+  __device__ __forceinline__ EqRaw fetch_eq(int q) const {
+    const int u = srem + q;
+    return peq[(size_t)clamp_row(row0 + (u >> 5), 0, row_hi) * BK + (u & 31)];
+  }
+  static __device__ __forceinline__ uint4 eq_of(const EqRaw& e) { return e; }
+  __device__ __forceinline__ bool vec_ok(int) const { return true; }
+  __device__ __forceinline__ void fetch_codes(int blk, CodeRaw& out) const {
+    out.lo = brow[2 * blk];
+    out.hi = brow[2 * blk + 1];
+  }
+  static __device__ __forceinline__ void codes_of(const CodeRaw& r, Codes& out) { out = r; }
+  __device__ __forceinline__ int code(int j) const {
+    return (int)((brow[j >> 4] >> (2 * (j & 15))) & 3u);
+  }
+};
+
+struct Tab2Rev {  // the tab2 tier's reverse pass
+  using Codes = Packed32;
+  struct CodeRaw {
+    uint32_t z0, z1, z2;
+  };
+  using EqRaw = EqPair;
+  const uint4* peq;
+  int row0, qrem, row_lo, row_hi;  // OFF_R + a_oid * NBb + q0 / 32, q0 % 32, OFF_R, OFF_BF - 1
+  int negm0r, delta;               // words k < -m0r are 0; the window's bit offset % 32
+  const uint32_t* bpk;             // the table as packed-b rows
+  int brow0, crem, brow_lo, brow_hi, db;  // the flip-b words' rows, residual, clip and funnel
+  __device__ __forceinline__ uint4 word(int u) const {  // residual-shifted flip peq word
+    u += qrem;
+    return peq[(size_t)clamp_row(row0 + (u >> 5), row_lo, row_hi) * BK + (u & 31)];
+  }
+  __device__ __forceinline__ uint32_t bword(int w) const {  // residual-shifted flip-b word
+    w += crem;
+    return bpk[(size_t)clamp_row(brow0 + (w >> 7), brow_lo, brow_hi) * BKB + (w & 127)];
+  }
+  __device__ __forceinline__ EqRaw fetch_eq(int q) const {
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    if (q < negm0r) return EqRaw{zero, zero, 0};  // below the reversed prefix
+    return EqRaw{word(q), word(q + 1), delta};
+  }
+  static __device__ __forceinline__ uint4 eq_of(const EqRaw& e) { return funnel_eq(e); }
+  __device__ __forceinline__ bool vec_ok(int) const { return true; }
+  __device__ __forceinline__ void fetch_codes(int blk, CodeRaw& r) const {
+    r = CodeRaw{bword(2 * blk), bword(2 * blk + 1), bword(2 * blk + 2)};
+  }
+  __device__ __forceinline__ void codes_of(const CodeRaw& r, Codes& out) const {
+    out.lo = __funnelshift_r(r.z0, r.z1, db);
+    out.hi = __funnelshift_r(r.z1, r.z2, db);
+  }
+  __device__ __forceinline__ int code(int j) const {
+    const uint32_t w = __funnelshift_r(bword(j >> 4), bword((j >> 4) + 1), db);
+    return (int)((w >> (2 * (j & 15))) & 3u);
   }
 };
 
@@ -349,7 +435,7 @@ __device__ __forceinline__ void fwd_pair(const Src& src, int p, int la, int lb, 
   bool full = nblk > 0 && WB <= lb && src.vec_ok(0);
   if (full) {
     src.fetch_codes(0, nraw);
-    Src::codes_of(nraw, cb);
+    src.codes_of(nraw, cb);
   }
 
   for (int blk = 0; blk < nblk; ++blk) {
@@ -436,7 +522,7 @@ __device__ __forceinline__ void fwd_pair(const Src& src, int p, int la, int lb, 
     }
     if (more) {
       shift_eq<K>(eq4, Src::eq_of(neq));
-      if (nfull) Src::codes_of(nraw, cb);
+      if (nfull) src.codes_of(nraw, cb);
       full = nfull;
     }
   }
@@ -539,7 +625,7 @@ __device__ __forceinline__ void rev_pair(const Src& src, int p, int row_off, int
   bool full = nblk > 0 && WB <= jend && src.vec_ok(0);
   if (full) {
     src.fetch_codes(0, nraw);
-    Src::codes_of(nraw, cb);
+    src.codes_of(nraw, cb);
   }
 
   for (int blk = 0; blk < nblk; ++blk) {
@@ -570,7 +656,7 @@ __device__ __forceinline__ void rev_pair(const Src& src, int p, int row_off, int
     }
     if (more) {
       shift_eq<K>(eq4, Src::eq_of(neq));
-      if (nfull) Src::codes_of(nraw, cb);
+      if (nfull) src.codes_of(nraw, cb);
       full = nfull;
     }
   }
@@ -624,6 +710,52 @@ __global__ void __launch_bounds__(kThreads)
   rev_pair<K>(src, p, row_offs[p], iends[p], jends[p], J, out_cost, out_row);
 }
 
+// The tab2 kernels.  win: the blocked table, n_o oriented rows of NBb
+// peq rows (forward, then flip), one packed forward b row and NBc packed
+// flip-b rows each (overlap/myers.py::tab2_offsets).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    myers_fwd_tab2_kernel(const int* __restrict__ a_oid, const int* __restrict__ b_oid,
+                          const int* __restrict__ d0s, const int* __restrict__ lengths,
+                          const uint32_t* __restrict__ win, int n_o, int NBb, int B, int W,
+                          int J, int* __restrict__ out_cost, int* __restrict__ out_iend,
+                          int* __restrict__ out_jend, int* __restrict__ out_win) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B) return;
+  const int ao = a_oid[p], bo = b_oid[p], d0 = d0s[p];
+  const int s = fwd_anchor(d0, W) + F_TAB;  // the window's first word in the a row
+  const Tab2Fwd src{reinterpret_cast<const uint4*>(win), win + (size_t)(2 * n_o * NBb + bo) * BKB,
+                    ao * NBb + (s >> 5), s & 31, n_o * NBb - 1};
+  fwd_pair<K>(src, p, lengths[ao >> 1], lengths[bo >> 1], d0, W, J, 0, out_cost, out_iend,
+              out_jend, out_win);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    myers_rev_tab2_kernel(const int* __restrict__ a_oid, const int* __restrict__ b_oid,
+                          const int* __restrict__ d0s, const int* __restrict__ iends,
+                          const int* __restrict__ jends, const uint32_t* __restrict__ win,
+                          int LA, int n_o, int NBb, int NBc, int B, int W, int J,
+                          int* __restrict__ out_cost, int* __restrict__ out_row) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= B) return;
+  const int ao = a_oid[p], bo = b_oid[p], d0 = d0s[p];
+  const int iend = iends[p], jend = jends[p];
+  const int m0r = (((iend - jend) - WB * fwd_anchor(d0, W) - WB * k_of(W)) >> 5) - 1;
+  // window bit t of word k = flip-peq bit obit + 32k + t (shifts: floor division)
+  const int obit = (LA - iend) + m0r * WB + F_TAB * WB;
+  const int q0 = obit >> 5;
+  const int cb = LA - jend;  // reversed code j = flip-b code cb + j
+  const int cbw = cb >> 4;
+  const int off_r = n_o * NBb, off_br = 2 * n_o * NBb + n_o;
+  const Tab2Rev src{reinterpret_cast<const uint4*>(win),
+                    off_r + ao * NBb + (q0 >> 5), q0 & 31, off_r, 2 * off_r - 1,
+                    -m0r, obit & 31,
+                    win, off_br + bo * NBc + (cbw >> 7), cbw & 127, off_br,
+                    off_br + n_o * NBc - 1, 2 * (cb & 15)};
+  rev_pair<K>(src, p, m0r * WB, iend, jend, J, out_cost, out_row);
+}
+
 int blocks(int B) { return (B + kThreads - 1) / kThreads; }
 
 template <int K>
@@ -659,6 +791,24 @@ cudaError_t launch_rev_win(const int* ro, const int* ie, const int* je, const ui
                            const int* bpk, int B, int J, int* c, int* row, cudaStream_t s) {
   PHASM_LAUNCH(myers_rev_win_kernel<K>, blocks(B), kThreads, s)(
       ro, ie, je, peq, bpk, B, J, c, row);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_fwd_tab2(const int* a, const int* b, const int* d0, const int* len,
+                            const uint32_t* win, int n_o, int NBb, int B, int W, int J, int* c,
+                            int* ie, int* je, int* wn, cudaStream_t s) {
+  PHASM_LAUNCH(myers_fwd_tab2_kernel<K>, blocks(B), kThreads, s)(
+      a, b, d0, len, win, n_o, NBb, B, W, J, c, ie, je, wn);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_rev_tab2(const int* a, const int* b, const int* d0, const int* ie,
+                            const int* je, const uint32_t* win, int LA, int n_o, int NBb, int NBc,
+                            int B, int W, int J, int* c, int* row, cudaStream_t s) {
+  PHASM_LAUNCH(myers_rev_tab2_kernel<K>, blocks(B), kThreads, s)(
+      a, b, d0, ie, je, win, LA, n_o, NBb, NBc, B, W, J, c, row);
   return cudaGetLastError();
 }
 
@@ -726,6 +876,41 @@ extern "C" int phasm_myers_rev_win(const int* row_off, const int* iend, const in
     case 8: return launch_rev_win<8>(row_off, iend, jend, peq, bpk, B, J, cost, best_row, s);
     case 9: return launch_rev_win<9>(row_off, iend, jend, peq, bpk, B, J, cost, best_row, s);
     case 10: return launch_rev_win<10>(row_off, iend, jend, peq, bpk, B, J, cost, best_row, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tab2 tier's kernels over the blocked table win (n_o oriented rows
+// built at width LA; NBb / NBc its peq / flip-b rows a read).  The forward
+// kernel returns iend relative to the anchor row 32 * m0, as the TPU
+// kernel does.  The wrapper checks that J <= 2048 (tab2_fits), which the
+// table's padding rows are sized for.
+extern "C" int phasm_myers_fwd_tab2(const int* a_oid, const int* b_oid, const int* d0,
+                                    const int* lengths, const uint32_t* win, int n_o, int NBb,
+                                    int B, int W, int J, int* cost, int* iend_rel, int* jend,
+                                    int* win_out, void* stream) {
+  if (B == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (host_k_of(W)) {
+    case 4: return launch_fwd_tab2<4>(a_oid, b_oid, d0, lengths, win, n_o, NBb, B, W, J, cost, iend_rel, jend, win_out, s);
+    case 5: return launch_fwd_tab2<5>(a_oid, b_oid, d0, lengths, win, n_o, NBb, B, W, J, cost, iend_rel, jend, win_out, s);
+    case 6: return launch_fwd_tab2<6>(a_oid, b_oid, d0, lengths, win, n_o, NBb, B, W, J, cost, iend_rel, jend, win_out, s);
+    case 7: return launch_fwd_tab2<7>(a_oid, b_oid, d0, lengths, win, n_o, NBb, B, W, J, cost, iend_rel, jend, win_out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int phasm_myers_rev_tab2(const int* a_oid, const int* b_oid, const int* d0,
+                                    const int* iend, const int* jend, const uint32_t* win, int LA,
+                                    int n_o, int NBb, int NBc, int B, int W, int J, int* cost,
+                                    int* best_row, void* stream) {
+  if (B == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (host_k_of(W) + 3) {  // rev_K(W) = K_of(W) + 3
+    case 7: return launch_rev_tab2<7>(a_oid, b_oid, d0, iend, jend, win, LA, n_o, NBb, NBc, B, W, J, cost, best_row, s);
+    case 8: return launch_rev_tab2<8>(a_oid, b_oid, d0, iend, jend, win, LA, n_o, NBb, NBc, B, W, J, cost, best_row, s);
+    case 9: return launch_rev_tab2<9>(a_oid, b_oid, d0, iend, jend, win, LA, n_o, NBb, NBc, B, W, J, cost, best_row, s);
+    case 10: return launch_rev_tab2<10>(a_oid, b_oid, d0, iend, jend, win, LA, n_o, NBb, NBc, B, W, J, cost, best_row, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -626,3 +626,148 @@ def rev_win_plain(row_off, iend, jend, peq_r, bpk_r, W: int, J: int):
     return _i32(rev_core(
         _window_peq(peq_r), unpack_b(bpk_r, J), row_off.long(), iend.long(), jend.long(), W
     ))
+
+
+# -- the tab2 tier: twins of the reference's ``build_myers_tables_blocked``
+# (``phasm_tpu/overlap/myers.py``) and of the window cuts inside its tab2
+# kernels (``myers_pallas.py``: the coarse-row gathers of
+# ``myers_pallas_compute_tab2``, then ``_residual_barrel`` and, in the
+# reverse kernel, the bit funnel, the below-prefix mask and the packed-b
+# funnel).  The blocked table holds the table tier's words in 128-word
+# rows; each pair fetches the few rows its window covers and shifts the
+# residual.  The windows equal ``fwd_prep_tab`` / ``rev_prep_tab``'s. --
+
+# row-count paddings: the largest J routed to the tab2 kernels is 2048, so
+# GF / GR <= 4 and GB <= 2; +1 slack
+_PAD_PEQ_BLOCKS = 5
+_PAD_BPK_BLOCKS = 3
+
+
+def blocked_counts(LA: int) -> tuple[int, int]:
+    """(NBb, NBc): per-read fetch-row counts of the blocked tables."""
+    PW, BW = table_words(LA)
+    return -(-PW // BK) + _PAD_PEQ_BLOCKS, -(-BW // BKB) + _PAD_BPK_BLOCKS
+
+
+def tab2_offsets(n_o: int, LA: int) -> tuple[int, int, int]:
+    """(rev_peq, bpk_f, bpk_r) row offsets inside the combined table."""
+    NBb, NBc = blocked_counts(LA)
+    return n_o * NBb, 2 * n_o * NBb, 2 * n_o * NBb + n_o
+
+
+def build_myers_tables_blocked(oriented: torch.Tensor, lengths: torch.Tensor) -> dict:
+    """Blocked window tables as one combined [N_rows, 128] int32 (uint32
+    bits) tensor on oriented's device (twin of the reference's
+    ``build_myers_tables_blocked``).  Row spaces:
+
+      [0, n_o*NBb)            forward peq blocks: row r*NBb + g holds words
+                              [g*BK, (g+1)*BK) of planes 0..3 word-major
+                              (lane w*4 + c = word g*BK + w, plane c);
+      [.., 2*n_o*NBb)         the same over the flip rows;
+      [.., + n_o)             packed forward b codes, words [0, JWMAX);
+      [.., + n_o*NBc)         packed flip b codes, BKB-word rows.
+
+    The words are ``build_myers_tables``' (same F_TAB anchoring, masking
+    and chunked build), zero past each read's PW peq words and BW packed
+    words."""
+    n_o, LA = oriented.shape
+    PW, BW = table_words(LA)
+    NBb, NBc = blocked_counts(LA)
+    t = build_myers_tables(oriented, lengths)
+    peq = torch.nn.functional.pad(t["peq"], (0, NBb * BK - PW))
+
+    def blocks(p):  # [n_o, 4, NBb*BK] -> [n_o*NBb, BK*4], word-major
+        return p.reshape(n_o, 4, NBb, BK).permute(0, 2, 3, 1).reshape(n_o * NBb, BK * 4)
+
+    bpk_f = torch.nn.functional.pad(t["bpk"][:, 0], (0, max(JWMAX - BW, 0)))[:, :JWMAX]
+    bpk_r = torch.nn.functional.pad(t["bpk"][:, 1], (0, NBc * BKB - BW)).reshape(n_o * NBc, BKB)
+    return {"win": torch.cat([blocks(peq[:, :4]), blocks(peq[:, 4:]), bpk_f, bpk_r])}
+
+
+def residual_barrel(x, srem, n_out: int):
+    """out[w] = x[w + srem] for w < n_out along axis 0, zeros shifted in
+    past x's end; per-pair srem >= 0 on the last axis.  The reference's
+    in-kernel barrel (``myers_pallas._residual_barrel``) as one gather."""
+    n = x.shape[0]
+    idx = torch.arange(n_out, device=x.device)[:, None] + srem.long()[None, :]
+    idx = idx.view((n_out,) + (1,) * (x.ndim - 2) + (x.shape[-1],)).expand((n_out,) + x.shape[1:])
+    return torch.where(idx < n, x.gather(0, idx.clamp(max=n - 1)), 0)
+
+
+def _tab2_rows(win, LA: int):
+    """(n_o, NBb, NBc) of a blocked table built at width LA."""
+    NBb, NBc = blocked_counts(LA)
+    return win.shape[0] // (2 * NBb + 1 + NBc), NBb, NBc
+
+
+def _fetch_blocks(win, first, lo: int, hi: int, G: int):
+    """Rows clip(first + g, lo, hi) for g < G of the blocked table, the
+    reference's coarse gather: [B, G, 128] int32."""
+    rows = first.long()[:, None] + torch.arange(G, device=win.device)[None, :]
+    return win[rows.clamp(lo, hi)]
+
+
+def _peq_words(slab):
+    """[B, G, 128] word-major peq rows -> [G*BK, 4, B] words."""
+    B, G, _ = slab.shape
+    return slab.reshape(B, G * BK, 4).permute(1, 2, 0)
+
+
+def fwd_prep_tab2(win, lengths, a_oid, b_oid, d0, LA: int, W: int, J: int):
+    """Forward window from the blocked table (the reference's tab2 forward
+    cut: rows s32 .. s32 + GF - 1 of the pair's a, clipped to the forward
+    region, then the residual barrel by srem = s % 32, s = m0 + F_TAB; the
+    b codes are row OFF_BF + b_oid).  Returns ``fwd_prep_tab``'s (peq_f
+    [NBLK, 4, B] int32, bpk_f [J/16, B] int32, la_rel, m0)."""
+    n_o, NBb, _ = _tab2_rows(win, LA)
+    GF = tab2_geometry(W, J)[0]
+    OFF_R, OFF_BF, _ = tab2_offsets(n_o, LA)
+    m0 = fwd_anchor(d0.long(), W)
+    s = m0 + F_TAB
+    slab = _fetch_blocks(win, a_oid.long() * NBb + s // BK, 0, OFF_R - 1, GF)
+    peq_f = residual_barrel(_peq_words(slab), s % BK, J // WB + K_of(W))
+    bpk_f = win[OFF_BF + b_oid.long(), : J // 16].T.contiguous()
+    la = lengths.long()[a_oid.long() >> 1]
+    return peq_f, bpk_f, la - m0 * WB, m0
+
+
+def rev_prep_tab2(win, a_oid, b_oid, LA: int, iend, jend, d0, W: int, J: int):
+    """Reverse window from the blocked table (the reference's tab2 reverse
+    cut): rows q32 .. q32 + GR - 1 of the pair's flip peq, clipped to that
+    region, the residual barrel by qrem, the bit funnel by delta, words k <
+    -m0r zeroed; the flip b rows c128 .. c128 + GB - 1 (clipped), the
+    barrel by crem and the funnel by db.  Returns ``rev_prep_tab``'s (peq_r
+    [NBLKr, 4, B] int32, bpk_r [J/16, B] int32, row_off)."""
+    n_o, NBb, NBc = _tab2_rows(win, LA)
+    _, GR, GB = tab2_geometry(W, J)
+    OFF_R, OFF_BF, OFF_BR = tab2_offsets(n_o, LA)
+    iend, jend = iend.long(), jend.long()
+    NBLKr, JW = J // WB + rev_K(W), J // 16
+    m0r = rev_anchor(iend, jend, d0.long(), W)
+    q0 = ((LA - iend) + m0r * WB + F_TAB * WB) // WB
+    delta = (LA - iend) % WB  # obit % 32: m0r and F_TAB add whole words
+    slab = _fetch_blocks(win, OFF_R + a_oid.long() * NBb + q0 // BK, OFF_R, OFF_BF - 1, GR)
+    x = residual_barrel(_peq_words(slab), q0 % BK, NBLKr + 1).long() & MASK
+    k = torch.arange(NBLKr, device=win.device)[:, None, None]
+    peq_r = to_u32_bits(torch.where(k < -m0r[None, None, :], 0, funnel_bits(x, delta)))
+    cbw = (LA - jend) // 16
+    bslab = _fetch_blocks(win, OFF_BR + b_oid.long() * NBc + cbw // BKB, OFF_BR, win.shape[0] - 1, GB)
+    z = residual_barrel(bslab.reshape(-1, GB * BKB).T, cbw % BKB, JW + 1).long() & MASK
+    bpk_r = to_u32_bits(funnel_bits(z, 2 * ((LA - jend) % 16)))
+    return peq_r, bpk_r, m0r * WB
+
+
+def fwd_tab2_plain(win, lengths, a_oid, b_oid, d0, LA: int, W: int, J: int):
+    """The tab2 kernel 1's contract in plain torch: ``fwd_prep_tab2`` then
+    the window-fed core; (cost_f, iend_rel, jend, win) int32."""
+    peq_f, bpk_f, _, _ = fwd_prep_tab2(win, lengths, a_oid, b_oid, d0, LA, W, J)
+    la = lengths[a_oid.long() >> 1]
+    lb = lengths[b_oid.long() >> 1]
+    return fwd_win_plain(la, lb, d0, peq_f, bpk_f, W, J)
+
+
+def rev_tab2_plain(win, a_oid, b_oid, LA: int, iend, jend, d0, W: int, J: int):
+    """The tab2 kernel 2's contract in plain torch: ``rev_prep_tab2`` then
+    the window-fed core; (cost_rev, best_row) int32."""
+    peq_r, bpk_r, row_off = rev_prep_tab2(win, a_oid, b_oid, LA, iend, jend, d0, W, J)
+    return rev_win_plain(row_off, iend, jend, peq_r, bpk_r, W, J)

@@ -13,8 +13,10 @@ loops of about the same length and the longest warps start first; each
 pair's outputs land at its own index.  The window-fed kernels keep the
 pair order, since their pair-last windows are laid out by it.  The main
 path (``DeviceExtender``) runs the resident kernels 1 and 2 only; the table
-tier is the entry point ``myers_compute_tab``, and its three counts stay out
-of ``configs.launch_counts()``.
+tier is the entry point ``myers_compute_tab``, the tab2 tier (kernels 1 and
+2 in their tab2 bodies, which cut their windows out of the blocked table
+themselves) the entry point ``myers_compute_tab2``, and the five counts of
+those two tiers stay out of ``configs.launch_counts()``.
 """
 from __future__ import annotations
 
@@ -24,14 +26,17 @@ import torch
 from phasm_tpu_torch import _build
 from phasm_tpu_torch.overlap import myers as plain
 from phasm_tpu_torch.overlap.extend import ExtendResult
-from phasm_tpu_torch.overlap.myers import F_TAB, WB, K_of, rev_K
-from phasm_tpu_torch.state import DeviceReads, MyersTables
+from phasm_tpu_torch.overlap.myers import F_TAB, WB, K_of, blocked_counts, rev_K
+from phasm_tpu_torch.overlap.routing import tab2_fits
+from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
 
 myers_fwd_launches = 0
 myers_rev_launches = 0
 myers_fwd_fetch_launches = 0
 myers_fwd_win_launches = 0
 myers_rev_win_launches = 0
+myers_fwd_tab2_launches = 0
+myers_rev_tab2_launches = 0
 
 
 def _require_table(table):
@@ -279,3 +284,99 @@ def myers_overlap_batch_tab(
     a, b, d = _build.index_tensors(reads.device, a_oid, b_oid, d0)
     tables = MyersTables.from_reads(reads)
     return _result(myers_compute_tab(tables, reads.lengths, a, b, d, band, jmax))
+
+
+# -- the tab2 tier --
+
+
+def _check_tab2(tables: MyersBlockedTables, W: int, J: int, lengths=None) -> None:
+    """Raise unless (W, J) is what the tab2 kernels take (K_of(W) in 4..7,
+    tab2_fits(W, J): J <= 2048, which the table's padding rows cover) and
+    the table (and lengths) are contiguous int32 tensors of the right shape
+    on one device."""
+    _check_shape(W, J)
+    if not tab2_fits(W, J):
+        raise ValueError(f"the tab2 kernels take tab2_fits(W, J) only, not W={W} J={J}")
+    NBb, NBc = blocked_counts(tables.LA)
+    _check_windows(tables.device, ("blocked table", tables.win,
+                                   (tables.n_o * (2 * NBb + 1 + NBc), 128)))
+    if lengths is not None:
+        _check_windows(tables.device, ("lengths", lengths, (lengths.shape[0],)))
+
+
+def myers_fwd_tab2(tables: MyersBlockedTables, lengths, a_oid, b_oid, d0, W: int, J: int):
+    """Tab2 kernel 1: the forward pass on windows it cuts out of the blocked
+    table itself; (cost_f, iend_rel, jend, win) int32 [B], iend relative to
+    the anchor row 32*m0 (the TPU kernel's contract)."""
+    global myers_fwd_tab2_launches
+    _check_tab2(tables, W, J, lengths)
+    _build.check_pair_vectors(tables.device, a_oid, b_oid, d0)
+    if tables.device.type == "cpu":
+        return plain.fwd_tab2_plain(tables.win, lengths, a_oid, b_oid, d0, tables.LA, W, J)
+    B = a_oid.shape[0]
+    outs = torch.empty((4, B), dtype=torch.int32, device=tables.device).unbind()
+    if B == 0:
+        return outs
+    err = _build.load().phasm_myers_fwd_tab2(
+        a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(), lengths.data_ptr(),
+        tables.win.data_ptr(), tables.n_o, blocked_counts(tables.LA)[0], B, W, J,
+        *(o.data_ptr() for o in outs), torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    _build.check(err, "phasm_myers_fwd_tab2")
+    myers_fwd_tab2_launches += 1
+    _build.count_shape("myers_fwd_tab2", B, W, J)
+    return outs
+
+
+def myers_rev_tab2(tables: MyersBlockedTables, a_oid, b_oid, d0, iend, jend, W: int, J: int):
+    """Tab2 kernel 2: reverse start recovery on windows it cuts, funnels and
+    masks out of the blocked table itself; (cost_rev, best_row) int32 [B]."""
+    global myers_rev_tab2_launches
+    _check_tab2(tables, W, J)
+    _build.check_pair_vectors(tables.device, a_oid, b_oid, d0, iend, jend)
+    if tables.device.type == "cpu":
+        return plain.rev_tab2_plain(tables.win, a_oid, b_oid, tables.LA, iend, jend, d0, W, J)
+    B = a_oid.shape[0]
+    outs = torch.empty((2, B), dtype=torch.int32, device=tables.device).unbind()
+    if B == 0:
+        return outs
+    NBb, NBc = blocked_counts(tables.LA)
+    err = _build.load().phasm_myers_rev_tab2(
+        a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(), iend.data_ptr(), jend.data_ptr(),
+        tables.win.data_ptr(), tables.LA, tables.n_o, NBb, NBc, B, W, J,
+        *(o.data_ptr() for o in outs), torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    _build.check(err, "phasm_myers_rev_tab2")
+    myers_rev_tab2_launches += 1
+    _build.count_shape("myers_rev_tab2", B, W, J)
+    return outs
+
+
+def myers_compute_tab2(tables: MyersBlockedTables, lengths, a_oid, b_oid, d0, W: int, J: int):
+    """The Myers tab2 tier (twin of the reference's
+    ``myers_pallas_compute_tab2``): tab2 kernel 1, then tab2 kernel 2 at the
+    forward ends.  Returns (cost, i0, iend, jend, win) int32 [B],
+    ``myers_pair``'s contract.  Raises outside the kernels' contract
+    (K_of(W) in 4..7, tab2_fits(W, J)); pads nothing and hands no batch on
+    to another tier."""
+    cost_f, iend_rel, jend, win = myers_fwd_tab2(tables, lengths, a_oid, b_oid, d0, W, J)
+    iend = (iend_rel + WB * plain.fwd_anchor(d0, W)).int()
+    cost_r, best_row = myers_rev_tab2(tables, a_oid, b_oid, d0, iend, jend, W, J)
+    return plain.combine(cost_f, iend, jend, win, cost_r, best_row)
+
+
+def myers_overlap_batch_tab2(
+    oriented: np.ndarray,
+    lengths: np.ndarray,
+    a_oid: np.ndarray,
+    b_oid: np.ndarray,
+    d0: np.ndarray,
+    band: int = 64,
+    jmax: int = 1024,
+    device="cuda",
+) -> ExtendResult:
+    """``myers_overlap_batch`` through the tab2 tier, from host arrays."""
+    reads = DeviceReads.from_arrays(oriented, lengths, device)
+    a, b, d = _build.index_tensors(reads.device, a_oid, b_oid, d0)
+    tables = MyersBlockedTables.from_reads(reads)
+    return _result(myers_compute_tab2(tables, reads.lengths, a, b, d, band, jmax))

@@ -4,7 +4,8 @@ This system has no learned weights.  What stays resident is the oriented
 read matrix, the read lengths and, on CUDA, the per-oriented-read match-mask
 tables the Myers kernels read their Eq words from.  Replaces the reference's
 ``put_chunked`` / ``_mesh_put`` upload (``phasm_tpu/overlap/extend.py``).
-``MyersTables`` holds the table tier's whole-read tables, built only when
+``MyersTables`` holds the table tier's whole-read tables and
+``MyersBlockedTables`` the tab2 tier's blocked table, each built only when
 asked (the reference's ``DeviceExtender._ensure_tables``).
 
 ``readset_from_arrays`` and ``alignment_table_from_matrix`` carry state
@@ -21,7 +22,12 @@ import torch
 
 from phasm_tpu_torch.alignments import AlignmentTable
 from phasm_tpu_torch.device import resolve_device
-from phasm_tpu_torch.overlap.myers import build_myers_tables, match_mask_table
+from phasm_tpu_torch.overlap.myers import (
+    blocked_counts,
+    build_myers_tables,
+    build_myers_tables_blocked,
+    match_mask_table,
+)
 from phasm_tpu_torch.reads import ReadSet
 
 
@@ -110,3 +116,48 @@ class MyersTables:
     def from_reads(cls, reads: DeviceReads) -> "MyersTables":
         t = build_myers_tables(reads.codes, reads.lengths)
         return cls(peq=t["peq"], bpk=t["bpk"], LA=reads.codes.shape[1])
+
+
+@dataclasses.dataclass
+class MyersBlockedTables:
+    """The tab2 tier's blocked table (``myers.build_myers_tables_blocked``)
+    on one device.
+
+    win  [n_o * (2*NBb + 1 + NBc), 128] int32 (uint32 bits): forward and
+         flip peq blocks, packed forward b rows, packed flip b rows
+    LA   the oriented matrix's width the table was built from
+    n_o  the oriented rows it holds
+    """
+
+    win: torch.Tensor
+    LA: int
+    n_o: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.win.device
+
+    @property
+    def nbytes(self) -> int:
+        return self.win.nbytes
+
+    @classmethod
+    def from_reads(cls, reads: DeviceReads) -> "MyersBlockedTables":
+        t = build_myers_tables_blocked(reads.codes, reads.lengths)
+        return cls(win=t["win"], LA=reads.codes.shape[1], n_o=reads.codes.shape[0])
+
+    @classmethod
+    def from_arrays(cls, win: np.ndarray, LA: int, device="cuda") -> "MyersBlockedTables":
+        """Upload a blocked table built at width LA (uint32 or int32 words,
+        e.g. the reference's ``build_myers_tables_blocked(...)["win"]``)."""
+        dev = resolve_device(device)
+        win = np.ascontiguousarray(win)
+        NBb, NBc = blocked_counts(LA)
+        per_read = 2 * NBb + 1 + NBc
+        if win.ndim != 2 or win.shape[1] != 128 or win.shape[0] % per_read or win.itemsize != 4:
+            raise ValueError(
+                f"blocked table: expected 32-bit [n_o * {per_read}, 128] words at LA={LA}, "
+                f"got {win.dtype} {list(win.shape)}"
+            )
+        t = torch.tensor(win.view(np.int32), device=dev)  # a copy: win may be read-only
+        return cls(win=t, LA=LA, n_o=win.shape[0] // per_read)

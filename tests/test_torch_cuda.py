@@ -15,7 +15,7 @@ from phasm_tpu_torch.overlap import extend as X
 from phasm_tpu_torch.overlap import myers as plain
 from phasm_tpu_torch.overlap import myers_cuda as MC
 from phasm_tpu_torch.overlap.engine import DeviceExtender
-from phasm_tpu_torch.state import DeviceReads, MyersTables
+from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
 
 from test_myers import as_oriented, random_overlap_case
 
@@ -84,6 +84,19 @@ def test_myers_kernels_match_plain(cuda_reads, W, B, J):
     flip = [t.flip(0).contiguous() for t in (a, b, d, ie, je)]
     _equal(MC.myers_fwd(reads, *flip[:3], W, J), [t.flip(0) for t in fwd])
     _equal(MC.myers_rev(reads, *flip, W, J), [t.flip(0) for t in rev])
+
+
+def test_myers_kernels_match_plain_past_8192(cuda_reads):
+    """Kernels 1 and 2 at W = 128, J = 16384, where column_order's key is two
+    bytes wide: b lengths up to ~12,000 give block counts past 255."""
+    W, J = 128, 16384
+    reads, (a, b, d) = cuda_reads(16384, B=40, la_max=12000, err=0.05)
+    assert int((reads.lengths[b.long() >> 1] >> 5).max()) > 255
+    fwd = MC.myers_fwd(reads, a, b, d, W, J)
+    _equal(fwd, plain.fwd_plain(reads.codes, reads.lengths, a, b, d, W, J))
+    ie, je = fwd[1], fwd[2]
+    _equal(MC.myers_rev(reads, a, b, d, ie, je, W, J),
+           plain.rev_plain(reads.codes, reads.lengths, a, b, d, ie, je, W, J))
 
 
 @pytest.mark.parametrize("W", [20, 64, 96, 128, 200, 256, 512])
@@ -230,3 +243,51 @@ def test_tab_kernels_reject_what_they_do_not_take(cuda_reads):
             MC.myers_fwd_win(*bad[:5], bad[5] if len(bad) > 5 else W, J)
     with pytest.raises(ValueError):
         MC.myers_compute_tab(tables, reads.lengths, a, b, d, 256, J)
+
+
+# -- the Myers tab2 tier: kernels 1 and 2 in their tab2 bodies --
+
+
+@pytest.mark.parametrize("J", [1024, 2048])
+@pytest.mark.parametrize("W", [64, 128])
+@pytest.mark.parametrize("B", [0, 1, 1000])
+def test_tab2_kernels_match_plain_and_myers_pair(cuda_reads, B, W, J):
+    """The tab2 kernels == fwd_tab2_plain / rev_tab2_plain == the resident
+    pair path, b lengths past J on some pairs; B = 0 launches nothing."""
+    reads, (a, b, d) = cuda_reads(200 + B + W + J, B=max(B, 1), la_max=LA_MAX[J], cut=True)
+    a, b, d = a[:B], b[:B], d[:B]
+    t2 = MyersBlockedTables.from_reads(reads)
+    n0, r0 = MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches
+    fwd = MC.myers_fwd_tab2(t2, reads.lengths, a, b, d, W, J)
+    _equal(fwd, plain.fwd_tab2_plain(t2.win, reads.lengths, a, b, d, t2.LA, W, J))
+    iend = (fwd[1] + 32 * plain.fwd_anchor(d, W)).int()
+    rev = MC.myers_rev_tab2(t2, a, b, d, iend, fwd[2], W, J)
+    _equal(rev, plain.rev_tab2_plain(t2.win, a, b, t2.LA, iend, fwd[2], d, W, J))
+    assert (MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches) == (n0 + (B > 0), r0 + (B > 0))
+    _equal(MC.myers_compute_tab2(t2, reads.lengths, a, b, d, W, J),
+           MC.myers_pair(reads, a, b, d, W, J))
+
+
+def test_tab2_kernels_reject_what_they_do_not_take(cuda_reads):
+    reads, (a, b, d) = cuda_reads(3, B=4, la_max=200)
+    t2 = MyersBlockedTables.from_reads(reads)
+    n0 = MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches
+    for args, W, J in (
+        ((t2, reads.lengths, a, b, d), 64, 4096),
+        ((t2, reads.lengths, a, b, d), 256, 1024),
+        ((t2, reads.lengths, a.long(), b, d), 64, 1024),
+        ((t2, reads.lengths, a.cpu(), b, d), 64, 1024),
+        ((t2, reads.lengths.cpu(), a, b, d), 64, 1024),
+        ((MyersBlockedTables(t2.win[:-1], t2.LA, t2.n_o), reads.lengths, a, b, d), 64, 1024),
+    ):
+        with pytest.raises(ValueError):
+            MC.myers_compute_tab2(*args, W, J)
+    with pytest.raises(ValueError):
+        MC.myers_rev_tab2(t2, a, b, d, d.long(), d, 64, 1024)
+    assert (MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches) == n0
+    args = (reads.codes.cpu().numpy(), reads.lengths.cpu().numpy(),
+            a.cpu().numpy(), b.cpu().numpy(), d.cpu().numpy())
+    got = MC.myers_overlap_batch_tab2(*args, band=64, jmax=1024)
+    want = MC.myers_overlap_batch(*args, band=64, jmax=1024)
+    for f in ("a_start", "a_end", "b_start", "b_end", "diffs", "win_cost"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f

@@ -2,7 +2,8 @@
 the host with g++ through ``csrc/host_shim.h`` and its grid run as loops,
 == the plain torch versions, integer for integer: the resident kernels
 against ``fwd_plain`` / ``rev_plain``, the window-fed ones against
-``fwd_win_plain`` / ``rev_win_plain`` and the resident ones.
+``fwd_win_plain`` / ``rev_win_plain`` and the resident ones, the tab2 ones
+against ``fwd_tab2_plain`` / ``rev_tab2_plain`` and the resident ones.
 
 This guards the kernels' index arithmetic (the column-order permutation,
 the unrolled column groups and their tail, the vector loads at any row
@@ -23,7 +24,7 @@ import torch
 from phasm_tpu_torch._build import ENTRIES, index_tensors
 from phasm_tpu_torch.overlap import myers as plain
 from phasm_tpu_torch.overlap import myers_cuda as MC
-from phasm_tpu_torch.state import DeviceReads, MyersTables
+from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
 
 from test_myers import as_oriented, random_overlap_case
 
@@ -149,6 +150,50 @@ def test_host_built_kernels_match_plain(lib, W):
         B, W, J, *(o.data_ptr() for o in rw), None) == 0
     _equal(rw, plain.rev_win_plain(row_off, ie, je, peq_r, bpk_r, W, J))
     _equal(rw, rev)
+
+
+@pytest.mark.parametrize("W", [64, 128])
+def test_host_built_tab2_kernels_match_plain(lib, W):
+    """The tab2 kernels, which cut their windows out of the blocked table
+    themselves (row clamps, residual shifts, the reverse funnels), ==
+    fwd_tab2_plain / rev_tab2_plain and the resident kernels."""
+    reads, (a, b, d) = _case(W, W)
+    B = a.shape[0]
+    t2 = MyersBlockedTables.from_reads(reads)
+    NBb, NBc = plain.blocked_counts(t2.LA)
+    fwd = _outs(4, B)
+    assert lib.phasm_myers_fwd_tab2(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), reads.lengths.data_ptr(), t2.win.data_ptr(),
+        t2.n_o, NBb, B, W, J, *(o.data_ptr() for o in fwd), None) == 0
+    _equal(fwd, plain.fwd_tab2_plain(t2.win, reads.lengths, a, b, d, t2.LA, W, J))
+    iend = (fwd[1] + 32 * plain.fwd_anchor(d, W)).int()
+    resident = _fwd(lib, reads, torch.arange(B), a, b, d, W)
+    _equal((fwd[0], iend, fwd[2], fwd[3]), resident)
+    rev = _outs(2, B)
+    assert lib.phasm_myers_rev_tab2(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), iend.data_ptr(), fwd[2].data_ptr(),
+        t2.win.data_ptr(), t2.LA, t2.n_o, NBb, NBc, B, W, J,
+        *(o.data_ptr() for o in rev), None) == 0
+    _equal(rev, plain.rev_tab2_plain(t2.win, a, b, t2.LA, iend, fwd[2], d, W, J))
+    _equal(rev, _rev(lib, reads, torch.arange(B), a, b, d, iend, fwd[2], W))
+
+
+def test_column_order_groups_by_blocks_at_either_key_width():
+    """column_order's one-byte key (J <= 8192) and two-byte key (J > 8192)
+    give the same grouping by 32-column block count, most blocks first, and
+    the two-byte key orders counts past 255 too (J = 16384)."""
+    rng = np.random.default_rng(3)
+    cols = torch.from_numpy(rng.integers(0, 8192, 5000).astype(np.int32))
+    blocks = (cols.clamp(max=8191) >> 5).long()
+    narrow, wide = MC.column_order(cols, 8192), MC.column_order(cols, 16384)
+    for order in (narrow, wide):
+        assert torch.equal(order.sort().values, torch.arange(cols.numel()))
+    assert torch.equal(blocks[narrow], blocks[wide])
+    assert bool((blocks[narrow][1:] <= blocks[narrow][:-1]).all())
+    long_cols = torch.from_numpy(rng.integers(0, 20000, 5000).astype(np.int32))
+    long_blocks = (long_cols.clamp(max=16383) >> 5).long()
+    got = long_blocks[MC.column_order(long_cols, 16384)]
+    assert torch.equal(got, long_blocks.sort(descending=True).values) and int(got[0]) == 511
 
 
 def test_host_built_kernels_match_nothing_on_n(lib):
