@@ -25,8 +25,10 @@
    J = 12288 bucket, its launch count set to 0 just before and read just
    after; then holds it against ``banded_overlap_batch`` (the plain
    version) and kernel 4 against its plain version and against kernel 3 on
-   the same pairs, exactly, with kernel 4's, kernel 3's and the plain
-   version's times;
+   the same pairs, exactly, with kernel 4's and kernel 3's (means of 30
+   launches) and the plain version's times, and each batch's share of
+   dead columns (past a's end: in min(J, lb) but not in the bound's live
+   columns);
 6. drives the Myers table tier ``overlap.myers_cuda.myers_compute_tab``
    (kernel 5, the window fetch, feeding the window-fed kernels 1 and 2) on
    c4's three buckets that the reference sends to its table tier (W = 64 at
@@ -51,7 +53,9 @@
 
 Each kernel's bound is the larger of its integer operations over the
 card's INT32 rate (SMs x 64 lanes x the maximum SM clock) and its bytes
-over the published HBM rate, counted from the batch's own pair lengths.
+over the published HBM rate, counted from the batch's own pair lengths
+(the W-band kernels: over each pair's live columns, min(J, lb, la - d0 +
+W/2), past which no band cell lies on a row of a).
 Prints the kernels' JSON line, then the result line
 ``{"ok": true, "device": {...}}`` last.  Any failure exits non-zero and
 prints no result line; so does a machine without a CUDA card.
@@ -91,13 +95,21 @@ TAB2_BATCHES = ((64, 1024), (128, 1024), (64, 2048))
 
 # integer ops per unit of work, counted from the kernel sources: the Myers
 # word step (csrc/myers.cu word_step + select_eq) per band word and column;
-# the W-band cell update (csrc/wband.cu wband_pair) per live band cell and
-# column
+# the W-band cell update per live band cell and column, for kernels 3 and 4
+# alike: the fewest the recurrence needs, kernel 4's body as written
+# (csrc/wband.cu wband_dense_kernel: the substitution's compare and select,
+# two fused add-mins for the diagonal / up candidate and the in-lane left
+# chain, one three-way min for the prefix and the BIG clamp; kernel 3's
+# wband_pair spends ~14)
 MYERS_OPS_PER_WORD = 17
-WBAND_OPS_PER_CELL = 14
-# launches in each CUDA-event mean of kernels 1 and 2 in phase 3 (two 5-launch
-# means of one kernel on the same pairs once differed by 7 %)
+WBAND_OPS_PER_CELL = 5
+# launches in each CUDA-event mean of kernels 1 and 2 in phase 3 and of
+# kernels 4 and 3 in phase 5 (two 5-launch means of one kernel on the same
+# pairs once differed by 7 %)
 MYERS_REPS = 30
+WBAND_REPS = 30
+# phase 5's batches: (rung, band, column bucket)
+DENSE_BATCHES = (("c4", 64, 4096), ("c4", 128, 4096), ("c3", 64, 12288))
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
@@ -164,7 +176,30 @@ def build() -> float:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             _say("  ptxas:", line.strip())
+    _say("ptxas, W-band kernels (registers, stack bytes, spill stores, spill loads):",
+         json.dumps({k: v for k, v in ptxas_table(_build.build_info["log"]).items() if "wband" in k}))
     return dt
+
+
+def ptxas_table(log: str) -> dict:
+    """{entry: [registers, stack bytes, spill store bytes, spill load bytes]}
+    from nvcc's -Xptxas -v output (entries by mangled name; kernel 4's carry
+    its <cells a lane, fast> template arguments)."""
+    import re
+
+    table, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            table[entry] = [None, None, None, None]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            table[entry][1:] = [int(g) for g in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            table[entry][0] = int(m.group(1))
+    return table
 
 
 def _candidates(rung, band: int):
@@ -255,12 +290,34 @@ def myers_rev_bound(jend, W: int, J: int, int_rate: float) -> dict:
     return _bound(MYERS_OPS_PER_WORD * K * int(cols.sum()), nbytes, int_rate)
 
 
-def wband_bound(lb, W: int, J: int, int_rate: float) -> dict:
-    """W live cells x 14 ops per column; bytes: one a and one b code per
-    column plus the band's first W a codes, 12 bytes in and 20 out per pair."""
-    cols = _cols(lb, J)
+def wband_cols(la, lb, d0, W: int, J: int):
+    """The columns the W-band function needs for each pair: min(J, lb,
+    la - d0 + W/2), at least 0.  Past column la - d0 + W/2 - 1 every band
+    cell lies on a row past la: it is never valid, so no endpoint fires and
+    no window mark counts there (kernel 3 runs those columns all the same,
+    up to min(J, lb))."""
+    import torch
+
+    live = la.long() - d0.long() + W // 2
+    return torch.minimum(_cols(lb, J), live).clamp(min=0)
+
+
+def dead_col_share(la, lb, d0, W: int, J: int) -> float:
+    """The share of min(J, lb) columns, summed over the pairs, that lie past
+    a's end (not in ``wband_cols``)."""
+    run = int(_cols(lb, J).sum())
+    return 1.0 - int(wband_cols(la, lb, d0, W, J).sum()) / run if run else 0.0
+
+
+def wband_bound(la, lb, d0, W: int, J: int, int_rate: float) -> dict:
+    """W cells x WBAND_OPS_PER_CELL ops per live column (``wband_cols``);
+    bytes: one a and one b code per live column plus the band's first W a
+    codes, 12 bytes in and 20 out per pair.  Also gives the batch's
+    ``dead_col_share``."""
+    cols = wband_cols(la, lb, d0, W, J)
     nbytes = 2 * int(cols.sum()) + (W + 32) * cols.numel()
-    return _bound(WBAND_OPS_PER_CELL * W * int(cols.sum()), nbytes, int_rate)
+    return dict(_bound(WBAND_OPS_PER_CELL * W * int(cols.sum()), nbytes, int_rate),
+                dead_col_share=dead_col_share(la, lb, d0, W, J))
 
 
 def fetch_bound(tables, a_oid, b_oid, sfw, W: int, J: int) -> dict:
@@ -392,15 +449,63 @@ def resident_myers_ms(reps: int = 30) -> dict:
     return out
 
 
-def compare_trees(*trees: str, reps: int = 30) -> dict:
-    """Kernels 1 and 2 timed by ``resident_myers_ms(reps)`` in each tree
-    (a directory holding a ``phasm_tpu_torch``, e.g. an older commit
-    unpacked with ``git archive`` into a git-ignored directory), one
-    process each, in turns: the trees in order, then reversed (for two
-    trees: parent, change, change, parent).  This script is copied into
-    each tree as ``_chip_smoke_timer.py``, so every tree is timed by the
-    same code.  Prints each run and returns {tree: {bucket: [fwd ms, rev
-    ms] means}}."""
+def _dense_batch_pairs():
+    """Phase 5's batches: [(tag, read set, ka, kb, kd, W, J)] from each
+    rung's seeding, the pairs the engine puts into bucket J at band W."""
+    from phasm_tpu_torch.configs import ladder
+
+    rungs = {r.name.split("_")[0]: r for r in ladder()}
+    batches = []
+    for tag, W, J in DENSE_BATCHES:
+        rung = rungs[tag]
+        rs, ka, kb, kd, la, lb = _candidates(rung, W)
+        idx = _bucket(rung, ka, kd, la, lb, W, J)
+        batches.append((tag, rs, ka[idx], kb[idx], kd[idx], W, J))
+    return batches
+
+
+def wband_ms(reps: int = 30) -> dict:
+    """Kernel 4 on phase 5's batches and kernel 3 on those and on phase 3's
+    c4 W256 / W512 J4096 batches: {label: [ms]}, each the mean of reps
+    launches after three warm-up calls.  It uses only port APIs as old as
+    kernel 4, so a copy of this script times an older tree on the same card
+    (``compare_trees``)."""
+    from phasm_tpu_torch._build import index_tensors
+    from phasm_tpu_torch.configs import ladder
+    from phasm_tpu_torch.overlap import extend as X
+    from phasm_tpu_torch.state import DeviceReads
+
+    out, reads_of = {}, {}
+    for tag, rs, ka, kb, kd, W, J in _dense_batch_pairs():
+        a2, b2, la, lb = X.prepare_pair_tensors(rs.oriented_codes_matrix(), rs.lengths, ka, kb, kd, W, J)
+        d = index_tensors(a2.device, kd)[0]
+        _, ms = _warm_time(lambda: X.wband_dense(a2, b2, la, lb, d, W), reps)
+        out[f"wband_dense.{tag}.W{W}.J{J}"] = [ms]
+        reads = reads_of.setdefault(tag, DeviceReads.from_reads(rs, "cuda"))
+        a, b, d3 = index_tensors(reads.device, ka, kb, kd)
+        _, ms3 = _warm_time(lambda: X.wband(reads, a, b, d3, W, J), reps)
+        out[f"wband.{tag}.W{W}.J{J}"] = [ms3]
+    c4 = next(r for r in ladder() if r.name.startswith("c4"))
+    rs, ka, kb, kd, la, lb = _candidates(c4, 64)
+    reads = reads_of.get("c4") or DeviceReads.from_reads(rs, "cuda")
+    for W in (256, 512):
+        idx = _bucket(c4, ka, kd, la, lb, W, 4096)
+        a, b, d = index_tensors(reads.device, ka[idx], kb[idx], kd[idx])
+        _, ms3 = _warm_time(lambda: X.wband(reads, a, b, d, W, 4096), reps)
+        out[f"wband.c4.W{W}.J4096"] = [ms3]
+    return out
+
+
+def compare_trees(*trees: str, reps: int = 30, timer: str = "resident_myers_ms") -> dict:
+    """Kernels timed by ``timer(reps)`` in each tree (a directory holding a
+    ``phasm_tpu_torch``, e.g. an older commit unpacked with ``git archive``
+    into a git-ignored directory), one process each, in turns: the trees in
+    order, then reversed (for two trees: parent, change, change, parent).
+    This script is copied into each tree as ``_chip_smoke_timer.py``, so
+    every tree is timed by the same code.  timer: ``resident_myers_ms``
+    (kernels 1 and 2, [fwd ms, rev ms] a bucket) or ``wband_ms`` (kernels 4
+    and 3, [ms] a batch).  Prints each run and returns {tree: {label: [ms
+    means]}}."""
     import shutil
 
     runs: dict = {t: [] for t in trees}
@@ -408,14 +513,14 @@ def compare_trees(*trees: str, reps: int = 30) -> dict:
         shutil.copyfile(__file__, f"{tree}/_chip_smoke_timer.py")
         out = subprocess.run(
             [sys.executable, "-c", "import json, _chip_smoke_timer as c; "
-             f"print('TIMES', json.dumps(c.resident_myers_ms({reps})))"],
+             f"print('TIMES', json.dumps(c.{timer}({reps})))"],
             cwd=tree, capture_output=True, text=True, check=True,
         ).stdout
         times = json.loads(next(ln for ln in out.splitlines() if ln.startswith("TIMES"))[6:])
         runs[tree].append(times)
         _say(f"  {tree}: {json.dumps(times)}")
-    means = {t: {b: [sum(r[b][i] for r in rs) / len(rs) for i in range(2)] for b in rs[0]}
-             for t, rs in runs.items()}
+    means = {t: {b: [sum(r[b][i] for r in rs) / len(rs) for i in range(len(rs[0][b]))]
+                 for b in rs[0]} for t, rs in runs.items()}
     _say("means:", json.dumps(means))
     return means
 
@@ -483,7 +588,9 @@ def kernel_checks(int_rate: float) -> dict:
         a, b, d = index_tensors(reads.device, ka_[idx], kb_[idx], kd_[idx])
         case("wband", f"{tag}.W{W}.J{J}", lambda: X.wband(reads, a, b, d, W, J),
              lambda: X.wband_plain(reads.codes, reads.lengths, a, b, d, W, J),
-             len(idx), W, J, wband_bound(reads.lengths[b.long() >> 1], W, J, int_rate), 5)
+             len(idx), W, J,
+             wband_bound(reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1], d, W, J,
+                         int_rate), 5)
     return results
 
 
@@ -572,19 +679,11 @@ def batch_entry_point(int_rate: float) -> tuple[dict, list]:
     import numpy as np
     import torch
 
-    from phasm_tpu_torch.configs import ladder
     from phasm_tpu_torch.overlap import extend as X
     from phasm_tpu_torch.state import DeviceReads
     from phasm_tpu_torch._build import index_tensors
 
-    rungs = {r.name.split("_")[0]: r for r in ladder()}
-    batches = []  # (tag, reads, oriented, lengths, ka, kb, kd, W, J)
-    for tag, W, J in (("c4", 64, 4096), ("c4", 128, 4096), ("c3", 64, 12288)):
-        rung = rungs[tag]
-        rs, ka, kb, kd, la, lb = _candidates(rung, W)
-        idx = _bucket(rung, ka, kd, la, lb, W, J)
-        batches.append((tag, rs, ka[idx], kb[idx], kd[idx], W, J))
-
+    batches = _dense_batch_pairs()
     X.wband_dense_launches = 0
     results = []
     for tag, rs, ka, kb, kd, W, J in batches:
@@ -614,11 +713,7 @@ def batch_entry_point(int_rate: float) -> tuple[dict, list]:
         # kernel level on staged tensors: kernel 4, its plain version, kernel 3
         a2, b2, la, lb = X.prepare_pair_tensors(oriented, lengths, ka, kb, kd, W, J)
         d = index_tensors(a2.device, kd)[0]
-        dense = lambda: X.wband_dense(a2, b2, la, lb, d, W)  # noqa: E731
-        dense()
-        torch.cuda.synchronize()
-        ms = _time_ms(dense, 5)
-        got = dense()
+        got, ms = _warm_time(lambda: X.wband_dense(a2, b2, la, lb, d, W), WBAND_REPS)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         plain_out = X.wband_dense_plain(a2, b2, la, lb, d, W)
@@ -627,19 +722,16 @@ def batch_entry_point(int_rate: float) -> tuple[dict, list]:
         plain_ms = e0.elapsed_time(e1)
         reads = DeviceReads.from_reads(rs, "cuda")
         a, b, d3 = index_tensors(reads.device, ka, kb, kd)
-        k3 = lambda: X.wband(reads, a, b, d3, W, J)  # noqa: E731
-        k3()
-        torch.cuda.synchronize()
-        k3_ms = _time_ms(k3, 5)
-        k3_out = k3()
+        k3_out, k3_ms = _warm_time(lambda: X.wband(reads, a, b, d3, W, J), WBAND_REPS)
         err = max(entry_err, _max_abs_err(got, plain_out), _max_abs_err(got, k3_out))
         rec = dict(
             case=label, pairs=len(ka), W=W, J=J, ms=ms, plain_ms=plain_ms, wband_ms=k3_ms,
             entry_wall_ms=wall_ms, plain_entry_wall_ms=plain_wall_ms, max_abs_err=err,
-            **wband_bound(lb, W, J, int_rate),
+            **wband_bound(la, lb, d, W, J, int_rate),
         )
         _say(f"  wband_dense {label}: pairs={len(ka)} kernel 4 {ms:.3f} ms, kernel 3 {k3_ms:.3f} ms, "
-             f"plain {plain_ms:.1f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+             f"plain {plain_ms:.1f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+             f"dead columns {rec['dead_col_share']:.4f} of min(J, lb); "
              f"entry point {wall_ms:.1f} ms wall (plain entry {plain_wall_ms:.1f} ms); "
              f"max_abs_err {err} (entry {entry_err})")
         cases.append(rec)

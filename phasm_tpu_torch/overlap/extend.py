@@ -13,7 +13,10 @@ compute the same function:
     every band W up to 512 (the engine's W-band family);
   * kernel 4, ``wband_dense``: pairs as staged ``a2``/``b2`` windows
     (``prepare_pair_tensors``), the reference's single-shot Pallas
-    contract 1 <= W <= 128, ``jmax % 8 == 0``, ``jmax < 32768``.
+    contract 1 <= W <= 128, ``jmax % 8 == 0``, ``jmax < 32768``; several
+    pairs to a warp, each run to its last live column (``dense_live_cols``)
+    and launched in ``column_order`` of those, with the endpoint tests only
+    in the 8-column steps that ``dense_quiet_steps`` does not clear.
 
 The batch API mirrors the reference's: ``prepare_pair_tensors`` (staging),
 ``banded_overlap_batch`` (the plain version) and ``banded_overlap_cuda``
@@ -215,6 +218,49 @@ def wband(reads, a_oid, b_oid, d0, W: int, J: int):
     return tuple(out[i] for i in range(5))
 
 
+def column_order(cols, J: int) -> torch.Tensor:
+    """The launch order of kernels 1, 2 and 4: pair indices (int64, on
+    cols' device) by the 32-column blocks each pair runs, most first (the
+    key floor(min(cols, J - 1) / 32) groups pairs as the block count does),
+    so the pairs that share a warp run loops of about the same length and
+    the longest warps start first.  The key is one byte up to J = 8192 (two
+    above), which sorts faster than the int32 columns do."""
+    key = torch.uint8 if J <= 256 * 32 else torch.int16
+    return torch.argsort((cols.clamp(max=J - 1) >> 5).to(key), descending=True)
+
+
+def dense_live_cols(la, lb, d0, W: int, J: int) -> torch.Tensor:
+    """The columns kernel 4 runs for each pair, int64 [M]: min(J, lb,
+    la - d0 + W // 2), at least 0.  Past column ae_hi = la - d0 + W // 2 - 1
+    every band cell lies on a row past la, so no endpoint fires there and no
+    window mark counts (they stop at la - d0 - W // 2).  Same formulas, in
+    the same order, as csrc/wband.cu."""
+    la, lb, d0 = (t.long() for t in (la, lb, d0))
+    ae_hi = la - d0 + W // 2 - 1
+    return torch.minimum(lb.clamp(max=J), ae_hi + 1).clamp(min=0)
+
+
+def dense_quiet_steps(la, lb, d0, W: int, J: int) -> torch.Tensor:
+    """Kernel 4's step predicate, bool [M, J // 8]: True where pair p's
+    8-column step j8 .. j8 + 7 can fire no endpoint, so the kernel runs it
+    without the endpoint tests (when every pair of its warp agrees): row la
+    lies outside the band in all eight columns (the i == la endpoint's
+    columns are ae_hi - W + 1 .. ae_hi) and none is the pair's last column
+    lb - 1, or the pair has ended (j8 >= dense_live_cols).  The recurrence itself
+    never needs dp_core's validity mask (only cells past the band, w >= W,
+    are held invalid): band rows < 0 hold BIG from the first column on
+    (they read only rows below them), and rows past la or columns past lb
+    never reach a valid cell.  Same formulas, in the same order, as
+    csrc/wband.cu."""
+    ncol = dense_live_cols(la, lb, d0, W, J)[:, None]
+    la, lb, d0 = (t.long()[:, None] for t in (la, lb, d0))
+    half = W // 2
+    j8 = torch.arange(0, J, 8, device=la.device)[None, :]
+    ae_hi = la - d0 + half - 1
+    ae_lo = ae_hi - (W - 1)
+    return (j8 >= ncol) | (((j8 > ae_hi) | (j8 + 7 < ae_lo)) & ((lb - 1 - j8 < 0) | (lb - 1 - j8 >= 8)))
+
+
 def check_dense_contract(W: int, J: int) -> None:
     """Raise unless (W, J) is inside kernel 4's contract, the reference
     single-shot kernel's own."""
@@ -254,9 +300,11 @@ def wband_dense(a2, b2, la, lb, d0, W: int):
         raise ValueError(f"per-pair vectors: {la.shape[0]} pairs, windows hold {M}")
     out = torch.empty((5, M), dtype=torch.int32, device=b2.device)
     if M:
+        order = column_order(dense_live_cols(la, lb, d0, W, J), J)
         err = _build.load().phasm_wband_dense(
-            a2.data_ptr(), b2.data_ptr(), la.data_ptr(), lb.data_ptr(), d0.data_ptr(),
-            M, W, J, out.data_ptr(), torch.cuda.current_stream(b2.device).cuda_stream,
+            order.data_ptr(), a2.data_ptr(), b2.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            d0.data_ptr(), M, W, J, out.data_ptr(),
+            torch.cuda.current_stream(b2.device).cuda_stream,
         )
         _build.check(err, "phasm_wband_dense")
         wband_dense_launches += 1

@@ -25,7 +25,7 @@ import torch
 
 from phasm_tpu_torch import _build
 from phasm_tpu_torch.overlap import myers as plain
-from phasm_tpu_torch.overlap.extend import ExtendResult
+from phasm_tpu_torch.overlap.extend import ExtendResult, column_order
 from phasm_tpu_torch.overlap.myers import F_TAB, WB, K_of, blocked_counts, rev_K
 from phasm_tpu_torch.overlap.routing import tab2_fits
 from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
@@ -50,16 +50,6 @@ def _check_shape(W: int, J: int) -> None:
         raise ValueError(f"Myers kernels take bands with K_of(W) in 4..7, not W={W}")
     if J % 128:
         raise ValueError(f"jmax must be 128-aligned, got {J}")
-
-
-def column_order(cols, J: int) -> torch.Tensor:
-    """The launch order of the resident kernels: pair indices (int64, on
-    cols' device) by the 32-column blocks each pair runs, most first (the
-    key floor(min(cols, J - 1) / 32) groups pairs as the block count does).
-    The key is one byte up to J = 8192 (two above), which sorts faster than
-    the int32 columns do."""
-    key = torch.uint8 if J <= 256 * WB else torch.int16
-    return torch.argsort((cols.clamp(max=J - 1) >> 5).to(key), descending=True)
 
 
 def myers_fwd(reads: DeviceReads, a_oid, b_oid, d0, W: int, J: int):

@@ -18,6 +18,7 @@ from phasm_tpu_torch.overlap.engine import DeviceExtender
 from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
 
 from test_myers import as_oriented, random_overlap_case
+from torch_cases import edited_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -136,18 +137,68 @@ def test_extender_runs_every_kernel_band_through_the_kernel(cuda_reads):
     _equal(out, X.wband_plain(reads.codes, reads.lengths, a, b, d, 96, 12288))
 
 
-@pytest.mark.parametrize("W", [20, 32, 64, 100, 128])
-@pytest.mark.parametrize("J", [256, 1024])
-def test_wband_dense_kernel_matches_plain_and_kernel_3(cuda_reads, W, J):
-    """Kernel 4 on staged windows == its plain version == kernel 3 on the
-    same pairs (both compute dp_core's function at W <= 128)."""
-    reads, (a, b, d) = cuda_reads(W + J, B=40, la_max=600)
-    a2, b2, la, lb = X.stage_pairs(reads.codes, reads.lengths, a, b, d, W, J)
+def _dense_case(seed, B, W, J, la_max, err=0.1):
+    """Edited pairs on the card: (reads, (a, b, d), staged a2, b2, la, lb)."""
+    rng = np.random.default_rng(seed)
+    a, b, la, lb, d0 = edited_pairs(rng, B, la_max, W, err)
+    oriented, lengths, a_oid, b_oid = as_oriented(a, b, la, lb)
+    reads = DeviceReads.from_arrays(oriented, lengths, "cuda")
+    a_, b_, d_ = index_tensors(reads.device, a_oid, b_oid, d0)
+    return reads, (a_, b_, d_), X.stage_pairs(reads.codes, reads.lengths, a_, b_, d_, W, J)
+
+
+def _dense_matches(reads, idx, staged, W, J):
+    """Kernel 4 == its plain version == kernel 3, and the batch in reversed
+    pair order gives the same per-pair outputs."""
+    a, b, d = idx
+    a2, b2, la, lb = staged
+    want = X.wband_dense_plain(a2, b2, la, lb, d, W)
+    _equal(want, X.wband(reads, a, b, d, W, J))
+    flip = [t.flip(0).contiguous() for t in (a2, b2, la, lb, d)]
     n0 = X.wband_dense_launches
-    got = X.wband_dense(a2, b2, la, lb, d, W)
-    assert X.wband_dense_launches == n0 + 1
-    _equal(got, X.wband_dense_plain(a2, b2, la, lb, d, W))
-    _equal(got, X.wband(reads, a, b, d, W, J))
+    _equal(X.wband_dense(a2, b2, la, lb, d, W), want)
+    _equal(X.wband_dense(*flip, W), [t.flip(0) for t in want])
+    assert X.wband_dense_launches == n0 + 2
+
+
+DENSE_W = [1, 20, 33, 64, 65, 100, 128]
+
+
+@pytest.mark.parametrize("J", [256, 1024])
+@pytest.mark.parametrize("B", [1, 3, 5, 40])
+@pytest.mark.parametrize("W", DENSE_W)
+def test_wband_dense_kernel_matches_plain_and_kernel_3(cuda_reads, W, B, J):
+    """Kernel 4 on staged windows == its plain version == kernel 3 on the
+    same pairs (both compute dp_core's function at W <= 128), on ragged
+    warps of edited pairs:
+    negative d0, d0 near la, b lengths under 8 and off the multiples of 8,
+    a shorter than the band."""
+    reads, idx, staged = _dense_case(100 * W + 10 * B + J // 256, B, W, J, 300 if J == 256 else 900)
+    _dense_matches(reads, idx, staged, W, J)
+
+
+@pytest.mark.parametrize("W", [64, 128])
+def test_wband_dense_kernel_matches_plain_at_12288(cuda_reads, W):
+    """Kernel 4 at c3's column bucket, J = 12288, on b rows up to ~11,000."""
+    reads, idx, staged = _dense_case(12289 + W, 40, W, 12288, 12000, err=0.05)
+    assert int(staged[3].max()) > 8192
+    _dense_matches(reads, idx, staged, W, 12288)
+
+
+def test_wband_dense_kernel_takes_unaligned_windows(cuda_reads):
+    """Windows whose rows start off an 8-byte boundary take the byte-load
+    path, with every step masked, and give the same outputs."""
+    W, J = 64, 1024
+    reads, (a, b, d), (a2, b2, la, lb) = _dense_case(17, 40, W, J, 900)
+    want = X.wband_dense_plain(a2, b2, la, lb, d, W)
+    shifted = []
+    for t in (a2, b2):
+        buf = torch.empty(t.numel() + 8, dtype=torch.uint8, device=t.device)
+        view = buf[3 : 3 + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 8 == 3
+        shifted.append(view)
+    _equal(X.wband_dense(*shifted, la, lb, d, W), want)
 
 
 def test_banded_overlap_cuda_matches_batch(cuda_reads):

@@ -14,6 +14,7 @@ from phasm_tpu_torch.overlap.routing import route
 from phasm_tpu_torch.state import DeviceReads
 
 from test_myers import as_oriented, random_overlap_case
+from torch_cases import edited_pairs
 
 torch.set_num_threads(1)  # small CPU shapes: more threads only contend with the other test workers
 
@@ -191,3 +192,121 @@ def test_banded_overlap_cuda_rejects_outside_its_contract(band, jmax):
     batch = _mk_pairs(0, 2, 64)
     with pytest.raises(ValueError):
         X.banded_overlap_cuda(*batch, band=band, jmax=jmax, device="cpu")
+
+
+def _kernel4_design_plain(a2, b2, la, lb, d0, W: int, quiet):
+    """dp_core's column loop as kernel 4 runs it: the recurrence with the
+    BIG clamp but no validity mask, and the two endpoint tests only in the
+    8-column steps that ``quiet`` [B, J // 8] does not clear, with the
+    kernel's guards (j < lb at i == la; rows <= la at j + 1 == lb)."""
+    B, J = b2.shape
+    la, lb, d0 = la.long(), lb.long(), d0.long()
+    lw = max(7, (W - 1).bit_length())
+    pack, half = 1 << lw, W // 2
+    BIGPW = (1 << 15) * pack
+    iota_w = torch.arange(W)[None, :]
+    i_at_j0 = d0[:, None] + iota_w - half
+    P = torch.where((i_at_j0 >= 0) & (i_at_j0 <= la[:, None]), iota_w, BIGPW)
+    win_cap = torch.minimum(lb, la - d0 - half)
+    zero = torch.zeros(B, dtype=torch.int64)
+    best = [zero + int(X.BIG), zero - 1, zero, zero, zero]  # cost, alen, i0, iend, jend
+    wprev, wmax, wprev2, wmax2 = zero, zero, zero, zero
+
+    def key(p, w):
+        return torch.where(p < BIGPW, ((p >> lw) << (lw + 1)) + (W - 1 - w + (p & (pack - 1))), X.BIGK)
+
+    def consider(j, ck, w_sel, mask):
+        cost, mid = ck >> (lw + 1), ck & ((1 << (lw + 1)) - 1)
+        i0 = mid - (W - 1) + w_sel + d0 - half
+        i_end = torch.minimum(d0 + (j + 1) + w_sel - half, la)
+        alen = (i_end - i0) + (j + 1)
+        better = mask & (ck < X.BIGK) & ((cost < best[0]) | ((cost == best[0]) & (alen > best[1])))
+        for k, v in enumerate((cost, alen, i0, i_end, zero + (j + 1))):
+            best[k] = torch.where(better, v, best[k])
+
+    for j in range(J):
+        sub = (a2[:, j : j + W] != b2[:, j : j + 1]).long() * pack
+        up = torch.cat([P[:, 1:], torch.full((B, 1), BIGPW)], dim=1) + pack
+        x = torch.minimum(P + sub, up) - iota_w * pack
+        P = (torch.cummin(x, dim=1).values + iota_w * pack).clamp(max=BIGPW)
+        ends = ~quiet[:, j // 8]
+        w_la = la - (d0 + (j + 1) - half)
+        k_la = key(P.gather(1, w_la.clamp(0, W - 1)[:, None])[:, 0], w_la)
+        consider(j, k_la, w_la, ends & (w_la >= 0) & (w_la < W) & (j < lb))
+        key1 = torch.where(i_at_j0 + (j + 1) <= la[:, None], key(P, iota_w), X.BIGK)
+        k_be = key1.min(dim=1).values
+        w_be = torch.where(key1 == k_be[:, None], iota_w, W).min(dim=1).values
+        consider(j, k_be, w_be, ends & (lb == j + 1))
+        if (j + 1) % (X.WINDOW // 2) == 0:
+            colmin = (P >> lw).min(dim=1).values
+            in_cap = (j + 1) <= win_cap
+            if (j + 1) % X.WINDOW == 0:
+                wmax = torch.where(in_cap, torch.maximum(wmax, colmin - wprev), wmax)
+                wprev = colmin
+            else:
+                if j + 1 != X.WINDOW // 2:
+                    wmax2 = torch.where(in_cap, torch.maximum(wmax2, colmin - wprev2), wmax2)
+                wprev2 = colmin
+    return best[0], best[2], best[3], best[4], torch.maximum(wmax, wmax2)
+
+
+@pytest.mark.parametrize("W", [20, 64, 128])
+def test_kernel4_quiet_steps_fire_no_endpoint(W):
+    """Kernel 4's design on the CPU: in the 8-column steps that
+    dense_quiet_steps clears, dp_core's masks let neither endpoint fire;
+    and dp_core's loop run as the kernel runs it (no validity mask, endpoint
+    tests only outside quiet steps, or in every step, as a warp-mate's steps
+    may force) gives dp_core's outputs on pairs with negative d0, d0 near
+    la, short a and short b."""
+    rng = np.random.default_rng(7 + W)
+    J = 512
+    a, b, la, lb, d0 = edited_pairs(rng, 10, 300, W)
+    oriented, lengths, a_oid, b_oid = as_oriented(a, b, la, lb)
+    a2, b2, la_t, lb_t = X.stage_pairs(
+        torch.from_numpy(oriented), torch.from_numpy(lengths), _t(a_oid), _t(b_oid), _t(d0), W, J
+    )
+    d = _t(d0)
+    quiet = X.dense_quiet_steps(la_t, lb_t, d, W, J)
+    assert quiet.shape == (10, J // 8) and bool(quiet.any()) and not bool(quiet.all())
+    # dp_core's masks at every column of a quiet step the pair still runs
+    jj = torch.arange(J)[None, :]
+    half = W // 2
+    lac, lbc = la_t.long()[:, None], lb_t.long()[:, None]
+    i_lo = d[:, None] + jj + 1 - half  # row of band cell 0 after column jj
+    w_la = lac - i_lo
+    la_fires = (w_la >= 0) & (w_la < W) & (jj < lbc)
+    lb_fires = (jj + 1 == lbc) & (i_lo <= lac) & (i_lo + W - 1 >= 0)  # a valid cell
+    # between its live columns and min(J, lb) a pair's band lies on a row past la
+    live, ncol = X.dense_live_cols(la_t, lb_t, d, W, J)[:, None], lbc.clamp(max=J)
+    assert bool((live < ncol).any())
+    assert bool(((jj < live) | (jj >= ncol) | (i_lo > lac)).all())
+    q_cols = quiet.repeat_interleave(8, dim=1) & (jj < ncol)
+    assert not bool((q_cols & (la_fires | lb_fires)).any())
+    want = [x.long() for x in X.dp_core(a2, b2, la_t, lb_t, d, W)]
+    for q in (quiet, torch.zeros_like(quiet)):
+        got = _kernel4_design_plain(a2, b2, la_t, lb_t, d, W, q)
+        for n, w_, g in zip(("cost", "i0", "iend", "jend", "win"), want, got):
+            assert torch.equal(w_, g), (W, n)
+
+
+def test_column_order_moved_groups_alike_at_both_key_widths():
+    """column_order, in overlap.extend (kernels 1, 2 and 4 launch in
+    it; myers_cuda takes it from there): one-byte (J <= 8192) and two-byte
+    keys group by 32-column blocks alike, most blocks first, and the wide
+    key orders block counts past 255."""
+    from phasm_tpu_torch.overlap import myers_cuda as MC
+
+    assert MC.column_order is X.column_order
+    rng = np.random.default_rng(5)
+    cols = torch.from_numpy(rng.integers(0, 8192, 3000).astype(np.int32))
+    blocks = (cols.clamp(max=8191) >> 5).long()
+    narrow, wide = X.column_order(cols, 8192), X.column_order(cols, 16384)
+    for order in (narrow, wide):
+        assert order.dtype == torch.int64
+        assert torch.equal(order.sort().values, torch.arange(cols.numel()))
+    assert torch.equal(blocks[narrow], blocks[wide])
+    assert bool((blocks[narrow][1:] <= blocks[narrow][:-1]).all())
+    long_cols = torch.from_numpy(rng.integers(0, 20000, 3000).astype(np.int32))
+    long_blocks = (long_cols.clamp(max=16383) >> 5).long()
+    got = long_blocks[X.column_order(long_cols, 16384)]
+    assert torch.equal(got, long_blocks.sort(descending=True).values) and int(got[0]) == 511
