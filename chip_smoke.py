@@ -10,10 +10,10 @@
 3. holds each kernel against its plain PyTorch version on the card, on
    real candidate batches from the port's seeding: Myers forward and
    reverse on the c4 rung's J = 1024 / 4096 / 8192 buckets at band 64 and
-   its J = 4096 bucket at band 128 (kernel times: means of 30 launches);
-   the W-band kernel on the c3 rung's whole J = 12288 bucket at band 64
-   and on c4 pairs at bands 256 and 512 (means of 5). Every integer output
-   must be equal; both times are printed per batch;
+   its J = 4096 bucket at band 128, and the W-band kernel 3 on the c3
+   rung's whole J = 12288 bucket at band 64 and on c4 pairs at bands 256
+   and 512 (kernel times: means of 30 launches). Every integer output must
+   be equal; both times are printed per batch;
 4. drives the main path once, ``phasm_tpu_torch.configs.run_rung`` on the
    c4 rung (200 kb diploid, 1,333 reads) on the card, with every launch
    count set to 0 just before and read just after, and holds its quality
@@ -96,14 +96,13 @@ TAB2_BATCHES = ((64, 1024), (128, 1024), (64, 2048))
 # integer ops per unit of work, counted from the kernel sources: the Myers
 # word step (csrc/myers.cu word_step + select_eq) per band word and column;
 # the W-band cell update per live band cell and column, for kernels 3 and 4
-# alike: the fewest the recurrence needs, kernel 4's body as written
-# (csrc/wband.cu wband_dense_kernel: the substitution's compare and select,
-# two fused add-mins for the diagonal / up candidate and the in-lane left
-# chain, one three-way min for the prefix and the BIG clamp; kernel 3's
-# wband_pair spends ~14)
+# alike: the fewest the recurrence needs, their shared body as written
+# (csrc/wband.cu wband_body: the substitution's compare and select, two
+# fused add-mins for the diagonal / up candidate and the in-lane left chain,
+# one three-way min for the prefix and the BIG clamp)
 MYERS_OPS_PER_WORD = 17
 WBAND_OPS_PER_CELL = 5
-# launches in each CUDA-event mean of kernels 1 and 2 in phase 3 and of
+# launches in each CUDA-event mean of kernels 1, 2 and 3 in phase 3 and of
 # kernels 4 and 3 in phase 5 (two 5-launch means of one kernel on the same
 # pairs once differed by 7 %)
 MYERS_REPS = 30
@@ -176,15 +175,21 @@ def build() -> float:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             _say("  ptxas:", line.strip())
-    _say("ptxas, W-band kernels (registers, stack bytes, spill stores, spill loads):",
-         json.dumps({k: v for k, v in ptxas_table(_build.build_info["log"]).items() if "wband" in k}))
+    wband = {k: v for k, v in ptxas_table(_build.build_info["log"]).items() if "wband" in k}
+    _say("ptxas, W-band kernels (registers, stack bytes, spill stores, spill loads):", json.dumps(wband))
+    spilled = [k for k, v in wband.items() if (v[2] or 0) + (v[3] or 0) > 0]
+    if spilled:
+        raise AssertionError(f"W-band kernels spill registers: {spilled}")
     return dt
 
 
 def ptxas_table(log: str) -> dict:
     """{entry: [registers, stack bytes, spill store bytes, spill load bytes]}
-    from nvcc's -Xptxas -v output (entries by mangled name; kernel 4's carry
-    its <cells a lane, fast> template arguments)."""
+    from nvcc's -Xptxas -v output.  The W-band kernels are named with their
+    template arguments: kernel 3 ``wband_kernel<lanes a pair, cells a
+    lane>`` (full bands) and ``wband_masked_kernel<...>`` (narrower ones),
+    kernel 4 ``wband_dense_kernel<cells a lane, fast>``; the others keep
+    their mangled names."""
     import re
 
     table, entry = {}, None
@@ -192,6 +197,9 @@ def ptxas_table(log: str) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
+            w = re.search(r"\d+(wband_\w*?kernel)I((?:L[ib]\d+E)+)E", entry)
+            if w:
+                entry = f"{w.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', w.group(2)))}>"
             table[entry] = [None, None, None, None]
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and entry:
@@ -294,8 +302,7 @@ def wband_cols(la, lb, d0, W: int, J: int):
     """The columns the W-band function needs for each pair: min(J, lb,
     la - d0 + W/2), at least 0.  Past column la - d0 + W/2 - 1 every band
     cell lies on a row past la: it is never valid, so no endpoint fires and
-    no window mark counts there (kernel 3 runs those columns all the same,
-    up to min(J, lb))."""
+    no window mark counts there (kernels 3 and 4 stop each pair there)."""
     import torch
 
     live = la.long() - d0.long() + W // 2
@@ -590,7 +597,7 @@ def kernel_checks(int_rate: float) -> dict:
              lambda: X.wband_plain(reads.codes, reads.lengths, a, b, d, W, J),
              len(idx), W, J,
              wband_bound(reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1], d, W, J,
-                         int_rate), 5)
+                         int_rate), WBAND_REPS)
     return results
 
 

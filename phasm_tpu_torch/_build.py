@@ -38,7 +38,7 @@ P, I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "phasm_myers_fwd": [P, P, P, P, P, P, I, P, I, I, I, I, P, P, P, P, P],
     "phasm_myers_rev": [P, P, P, P, P, P, P, P, I, P, I, I, I, I, P, P, P],
-    "phasm_wband": [P, P, P, P, P, I, I, I, I, P, P],
+    "phasm_wband": [P, P, P, P, P, P, I, I, I, I, I, P, P],
     "phasm_wband_dense": [P, P, P, P, P, P, I, I, I, P, P],
     "phasm_myers_fwd_win": [P, P, P, P, P, I, I, I, P, P, P, P, P],
     "phasm_myers_rev_win": [P, P, P, P, P, I, I, I, P, P, P],

@@ -10,13 +10,16 @@ whose first half-span is not scored.  Both kernels (``csrc/wband.cu``)
 compute the same function:
 
   * kernel 3, ``wband``: pairs by oriented id against ``DeviceReads``,
-    every band W up to 512 (the engine's W-band family);
+    every band W up to 512 and any J (the engine's W-band family), its
+    codes read from the resident matrix;
   * kernel 4, ``wband_dense``: pairs as staged ``a2``/``b2`` windows
     (``prepare_pair_tensors``), the reference's single-shot Pallas
-    contract 1 <= W <= 128, ``jmax % 8 == 0``, ``jmax < 32768``; several
-    pairs to a warp, each run to its last live column (``dense_live_cols``)
-    and launched in ``column_order`` of those, with the endpoint tests only
-    in the 8-column steps that ``dense_quiet_steps`` does not clear.
+    contract 1 <= W <= 128, ``jmax % 8 == 0``, ``jmax < 32768``.
+
+Both run one body: several pairs to a warp, each run to its last live
+column (``dense_live_cols``) and launched in ``column_order`` of those,
+with the endpoint tests only in the 8-column steps that
+``dense_quiet_steps`` does not clear.
 
 The batch API mirrors the reference's: ``prepare_pair_tensors`` (staging),
 ``banded_overlap_batch`` (the plain version) and ``banded_overlap_cuda``
@@ -196,7 +199,8 @@ def wband_plain(codes, lengths, a_oid, b_oid, d0, W: int, J: int):
 
 def wband(reads, a_oid, b_oid, d0, W: int, J: int):
     """Kernel 3: W-band extension of pairs of a ``state.DeviceReads`` read
-    set, (cost, i0, iend, jend, win) int32 [B]."""
+    set, (cost, i0, iend, jend, win) int32 [B]; pairs launched in
+    ``column_order`` of their ``dense_live_cols``."""
     global wband_launches
     if reads.device.type == "cpu":
         return wband_plain(reads.codes, reads.lengths, a_oid, b_oid, d0, W, J)
@@ -207,9 +211,13 @@ def wband(reads, a_oid, b_oid, d0, W: int, J: int):
     B = a_oid.shape[0]
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
     if B:
+        # gathered on the device: extend_async does not wait for it
+        la, lb = reads.lengths[a_oid.long() >> 1], reads.lengths[b_oid.long() >> 1]
+        order = column_order(dense_live_cols(la, lb, d0, W, J), J)
+        n_o, LA = reads.codes.shape
         err = _build.load().phasm_wband(
-            a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(),
-            reads.lengths.data_ptr(), reads.codes.data_ptr(), reads.codes.shape[1],
+            order.data_ptr(), a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(),
+            reads.lengths.data_ptr(), reads.codes.data_ptr(), n_o, LA,
             B, W, J, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(err, "phasm_wband")
@@ -219,7 +227,7 @@ def wband(reads, a_oid, b_oid, d0, W: int, J: int):
 
 
 def column_order(cols, J: int) -> torch.Tensor:
-    """The launch order of kernels 1, 2 and 4: pair indices (int64, on
+    """The launch order of kernels 1 to 4: pair indices (int64, on
     cols' device) by the 32-column blocks each pair runs, most first (the
     key floor(min(cols, J - 1) / 32) groups pairs as the block count does),
     so the pairs that share a warp run loops of about the same length and
@@ -230,7 +238,7 @@ def column_order(cols, J: int) -> torch.Tensor:
 
 
 def dense_live_cols(la, lb, d0, W: int, J: int) -> torch.Tensor:
-    """The columns kernel 4 runs for each pair, int64 [M]: min(J, lb,
+    """The columns kernels 3 and 4 run for each pair, int64 [M]: min(J, lb,
     la - d0 + W // 2), at least 0.  Past column ae_hi = la - d0 + W // 2 - 1
     every band cell lies on a row past la, so no endpoint fires there and no
     window mark counts (they stop at la - d0 - W // 2).  Same formulas, in
@@ -241,7 +249,7 @@ def dense_live_cols(la, lb, d0, W: int, J: int) -> torch.Tensor:
 
 
 def dense_quiet_steps(la, lb, d0, W: int, J: int) -> torch.Tensor:
-    """Kernel 4's step predicate, bool [M, J // 8]: True where pair p's
+    """The W-band kernels' step predicate, bool [M, J // 8]: True where pair p's
     8-column step j8 .. j8 + 7 can fire no endpoint, so the kernel runs it
     without the endpoint tests (when every pair of its warp agrees): row la
     lies outside the band in all eight columns (the i == la endpoint's

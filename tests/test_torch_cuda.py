@@ -18,7 +18,7 @@ from phasm_tpu_torch.overlap.engine import DeviceExtender
 from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
 
 from test_myers import as_oriented, random_overlap_case
-from torch_cases import edited_pairs
+from torch_cases import edited_pairs, resident_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -100,13 +100,53 @@ def test_myers_kernels_match_plain_past_8192(cuda_reads):
            plain.rev_plain(reads.codes, reads.lengths, a, b, d, ie, je, W, J))
 
 
-@pytest.mark.parametrize("W", [20, 64, 96, 128, 200, 256, 512])
-def test_wband_kernel_matches_plain(cuda_reads, W):
-    reads, (a, b, d) = cuda_reads(W + 1, B=32, la_max=500)
-    J = 1024
+# kernel 3's width classes (8 x 8, 8 x 16, 16 x 16, 32 x 16 lanes x cells),
+# each at its full band and at bands that leave cells past the band
+WBAND_W = [1, 20, 33, 64, 65, 96, 128, 129, 200, 256, 300, 512]
+
+
+def _resident_case(seed, B, W, la_max, err=0.1):
+    """resident_pairs on the card: pairs on row 0 with d0 < W/2 and on the
+    last row (windows off both ends of the matrix), LA no multiple of 8,
+    negative d0, d0 near la, lb under 8 and off the 8-column steps, short a."""
+    rng = np.random.default_rng(seed)
+    oriented, lengths, a_oid, b_oid, d0 = resident_pairs(rng, B, la_max, W, err)
+    assert oriented.shape[1] % 8 != 0
+    reads = DeviceReads.from_arrays(oriented, lengths, "cuda")
+    return reads, index_tensors(reads.device, a_oid, b_oid, d0)
+
+
+def _wband_matches(reads, idx, W, J):
+    """Kernel 3 == its plain version, and the batch in reversed pair order
+    gives the same per-pair outputs."""
+    a, b, d = idx
+    want = X.wband_plain(reads.codes, reads.lengths, a, b, d, W, J)
     n0 = X.wband_launches
-    _equal(X.wband(reads, a, b, d, W, J), X.wband_plain(reads.codes, reads.lengths, a, b, d, W, J))
-    assert X.wband_launches == n0 + 1
+    _equal(X.wband(reads, a, b, d, W, J), want)
+    flip = [t.flip(0).contiguous() for t in (a, b, d)]
+    _equal(X.wband(reads, *flip, W, J), [t.flip(0) for t in want])
+    assert X.wband_launches == n0 + 2
+
+
+@pytest.mark.parametrize("J", [1003, 1024])
+@pytest.mark.parametrize("W", WBAND_W)
+def test_wband_kernel_matches_plain(cuda_reads, W, J):
+    """Kernel 3 on every width class, full and odd bands, and at a J that is
+    no multiple of 8: random pairs, then edited pairs at the matrix's edges."""
+    reads, idx = cuda_reads(W + 1, B=32, la_max=500)
+    _wband_matches(reads, idx, W, J)
+    reads, idx = _resident_case(10 * W + J, 40, W, 900)
+    _wband_matches(reads, idx, W, J)
+
+
+@pytest.mark.parametrize("J", [12288, 16384])
+@pytest.mark.parametrize("W", [64, 128, 256, 512])
+def test_wband_kernel_matches_plain_at_long_buckets(cuda_reads, W, J):
+    """Kernel 3 at the long column buckets (c3's J = 12288, round-2's
+    16384: column_order's two-byte key) on b rows past 8192 columns."""
+    reads, idx = _resident_case(J + W, 24, W, J - 1000, err=0.05)
+    assert int(reads.lengths.max()) > 8192
+    _wband_matches(reads, idx, W, J)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_reads):
@@ -126,15 +166,17 @@ def test_kernels_reject_what_they_do_not_take(cuda_reads):
     assert X.wband_dense_launches == n0
 
 
-def test_extender_runs_every_kernel_band_through_the_kernel(cuda_reads):
-    """A band that is not a multiple of 32 at a long bucket (W-band
-    routing) reaches kernel 3 on the card, not the plain version."""
-    reads, (a, b, d) = cuda_reads(7, B=16, la_max=500)
+@pytest.mark.parametrize("W", [20, 96, 200, 300, 512])
+def test_extender_runs_every_kernel_band_through_the_kernel(cuda_reads, W):
+    """Bands of every width class, full and not, at a long bucket (W-band
+    routing) reach kernel 3 on the card, not the plain version, on pairs at
+    the matrix's edges."""
+    reads, (a, b, d) = _resident_case(7 + W, 16, W, 500)
     ext = DeviceExtender(reads, band=64, backend="myers_pallas")
     n0 = X.wband_launches
-    out, M = ext.extend_async(a.cpu().numpy(), b.cpu().numpy(), d.cpu().numpy(), 12288, band=96)
-    assert X.wband_launches == n0 + 1 and M == 16
-    _equal(out, X.wband_plain(reads.codes, reads.lengths, a, b, d, 96, 12288))
+    out, M = ext.extend_async(a.cpu().numpy(), b.cpu().numpy(), d.cpu().numpy(), 12288, band=W)
+    assert X.wband_launches == n0 + 1 and M == a.shape[0]
+    _equal(out, X.wband_plain(reads.codes, reads.lengths, a, b, d, W, 12288))
 
 
 def _dense_case(seed, B, W, J, la_max, err=0.1):

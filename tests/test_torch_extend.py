@@ -14,7 +14,7 @@ from phasm_tpu_torch.overlap.routing import route
 from phasm_tpu_torch.state import DeviceReads
 
 from test_myers import as_oriented, random_overlap_case
-from torch_cases import edited_pairs
+from torch_cases import edited_pairs, resident_pairs
 
 torch.set_num_threads(1)  # small CPU shapes: more threads only contend with the other test workers
 
@@ -250,9 +250,10 @@ def _kernel4_design_plain(a2, b2, la, lb, d0, W: int, quiet):
     return best[0], best[2], best[3], best[4], torch.maximum(wmax, wmax2)
 
 
-@pytest.mark.parametrize("W", [20, 64, 128])
+@pytest.mark.parametrize("W", [20, 64, 128, 256, 512])
 def test_kernel4_quiet_steps_fire_no_endpoint(W):
-    """Kernel 4's design on the CPU: in the 8-column steps that
+    """The W-band body's design (kernels 3 and 4) on the CPU, at each of
+    kernel 3's width classes: in the 8-column steps that
     dense_quiet_steps clears, dp_core's masks let neither endpoint fire;
     and dp_core's loop run as the kernel runs it (no validity mask, endpoint
     tests only outside quiet steps, or in every step, as a warp-mate's steps
@@ -260,7 +261,9 @@ def test_kernel4_quiet_steps_fire_no_endpoint(W):
     la, short a and short b."""
     rng = np.random.default_rng(7 + W)
     J = 512
-    a, b, la, lb, d0 = edited_pairs(rng, 10, 300, W)
+    # at W = 512 a pair has columns past its live ones only where b runs
+    # over 256 columns past a's end: longer reads make such pairs
+    a, b, la, lb, d0 = edited_pairs(rng, 10, 300 if W <= 256 else 1200, W)
     oriented, lengths, a_oid, b_oid = as_oriented(a, b, la, lb)
     a2, b2, la_t, lb_t = X.stage_pairs(
         torch.from_numpy(oriented), torch.from_numpy(lengths), _t(a_oid), _t(b_oid), _t(d0), W, J
@@ -287,6 +290,45 @@ def test_kernel4_quiet_steps_fire_no_endpoint(W):
         got = _kernel4_design_plain(a2, b2, la_t, lb_t, d, W, q)
         for n, w_, g in zip(("cost", "i0", "iend", "jend", "win"), want, got):
             assert torch.equal(w_, g), (W, n)
+
+
+def _resident_windows(oriented, a_oid, b_oid, d0, W: int, J: int):
+    """The band windows kernel 3 reads from the resident matrix: a2[p, t] is
+    the matrix byte at offset a_oid * LA + d0 - W/2 + t and b2[p, j] the one
+    at b_oid * LA + j, each offset clamped into the matrix, so outside a read
+    they hold its row's zero pad, a neighbouring row or the matrix's first
+    or last byte, never 254 / 255.  Also returns the unclamped a offsets."""
+    flat = torch.from_numpy(oriented).reshape(-1)
+    LA = oriented.shape[1]
+    t = torch.arange(J + W)[None, :]
+    ai = _t(a_oid)[:, None] * LA + _t(d0)[:, None] - W // 2 + t
+    bi = _t(b_oid)[:, None] * LA + t[:, :J]
+    n = flat.numel()
+    return flat[ai.clamp(0, n - 1)], flat[bi.clamp(0, n - 1)], ai
+
+
+@pytest.mark.parametrize("W", [20, 64, 200, 256, 512])
+def test_out_of_read_codes_change_nothing(W):
+    """Kernel 3's code source on the CPU: dp_core on the windows the kernel
+    reads (the matrix's own bytes outside each read, at offsets clamped into
+    it, no 254 / 255 pads) gives wband_plain's outputs, on pairs on row 0
+    with d0 < W/2, on the last row (windows off both ends of the matrix),
+    with negative d0, d0 near la, short a and short b."""
+    rng = np.random.default_rng(40 + W)
+    J = 512
+    oriented, lengths, a_oid, b_oid, d0 = resident_pairs(rng, 10, 300, W)
+    codes, lens = torch.from_numpy(oriented), torch.from_numpy(lengths)
+    a, b, d = (_t(x) for x in (a_oid, b_oid, d0))
+    a2, b2, ai = _resident_windows(oriented, a_oid, b_oid, d0, W, J)
+    assert int(ai.min()) < 0 and int(ai.max()) >= oriented.size
+    staged_a2, staged_b2, la, lb = X.stage_pairs(codes, lens, a, b, d, W, J)
+    assert bool((staged_a2 == 254).any()) and bool((staged_b2 == 255).any())
+    assert int(a2.max()) < 254 and int(b2.max()) < 254  # no pad codes
+    want = X.wband_plain(codes, lens, a, b, d, W, J)
+    assert int((want[0] < int(X.BIG)).sum()) >= 5  # real alignments, not only misses
+    got = X.dp_core(a2, b2, la, lb, d, W)
+    for n, w_, g in zip(("cost", "i0", "iend", "jend", "win"), want, got):
+        assert torch.equal(w_.long(), g), (W, n)
 
 
 def test_column_order_moved_groups_alike_at_both_key_widths():
