@@ -49,7 +49,22 @@
    cut (their plain cut) against the table tier's, and the tab2 kernels
    against the window-fed and resident kernels on every batch and their
    plain versions on W = 64, J = 1024, exactly, with the kernels' times
-   beside theirs and the three entry points' wall times.
+   beside theirs and the three entry points' wall times;
+8. drives the staged CLI ``phasm_tpu_torch.cli.main`` on the card: on
+   rungs c1 to c5, each rung's simulated reads written as FASTA (named as
+   ``simulate`` names them), ``overlap --min-overlap <rung's> --device
+   cuda``, its three launch counts set to 0 just before and read just
+   after; each table's length must equal the reference ladder's
+   ``n_alignments`` (``LADDER_r5.jsonl``), kernels 1 and 2 must have
+   launched on every rung, and kernel 3 exactly on the rungs whose
+   routing sends pairs to the W-band family (band 256 retries, J = 12288
+   buckets; c2 has neither). On c4 the stage's .npz must equal
+   ``overlap_reads`` run in process on the same reads, field for field
+   (``win`` too), and its LAdump (``--out x.las``) parsed back must give
+   the same 8 columns; then ``filter`` -> ``layout`` -> ``phase
+   --read-assignment`` on the card, and ``phase`` again with ``--device
+   cpu``: the two haplotig FASTA files and the two TSV files must be
+   byte-equal.
 
 Each kernel's bound is the larger of its integer operations over the
 card's INT32 rate (SMs x 64 lanes x the maximum SM clock) and its bytes
@@ -69,6 +84,9 @@ import time
 
 # the reference ladder's c4 row (LADDER_r5.jsonl) and the allowed shortfall
 C4_REFERENCE = {"qc_kmer_identity": 0.9896, "qc_completeness": 0.9896}
+# the reference ladder's n_alignments (LADDER_r5.jsonl): the overlap table's
+# length, len(alignments) at the top of pipeline.assemble
+LADDER_R5_ALIGNMENTS = {"c1": 11832, "c2": 118748, "c3": 44252, "c4": 47343, "c5": 53822}
 QC_SLACK = 0.005
 MIN_PURITY = 0.99
 
@@ -601,17 +619,35 @@ def kernel_checks(int_rate: float) -> dict:
     return results
 
 
+def _zero_launches() -> None:
+    """Set the main path's three launch counts to 0."""
+    from phasm_tpu_torch.overlap import extend, myers_cuda
+
+    myers_cuda.myers_fwd_launches = myers_cuda.myers_rev_launches = 0
+    extend.wband_launches = 0
+
+
+def _say_overlap_counters(label: str, counters: dict) -> dict:
+    """Print the overlap engine's kernel families, wide-band retries and
+    the wrappers' launch shapes from ``metrics`` counters; returns the
+    shapes ({kernel.<name>.W<W>.J<J>[.launches]: value})."""
+    _say(f"{label} kernel families:", json.dumps(
+        {k: v for k, v in counters.items() if k.startswith("overlap.family.")}, sort_keys=True))
+    _say(f"{label} wide-band retries:", json.dumps(
+        {k: v for k, v in counters.items() if k.startswith("overlap.wide_band_retries")}, sort_keys=True))
+    shapes = {k: v for k, v in sorted(counters.items()) if k.startswith("kernel.")}
+    _say(f"{label} launch shapes (pairs; .launches):", json.dumps(shapes))
+    return shapes
+
+
 def main_path() -> tuple[dict, dict]:
     """c4 end to end on the card; returns (launch counts, {kernel.<name>.W.J
     counter: value}, the wrappers' pairs and launches per shape)."""
     from phasm_tpu_torch import configs, metrics
-    from phasm_tpu_torch.overlap import extend, myers_cuda
 
     c4 = next(r for r in configs.ladder() if r.name.startswith("c4"))
     metrics.reset()
-    myers_cuda.myers_fwd_launches = 0
-    myers_cuda.myers_rev_launches = 0
-    extend.wband_launches = 0
+    _zero_launches()
     row = configs.run_rung(c4, device="cuda")
     launches = configs.launch_counts()
     report = metrics.report()
@@ -621,14 +657,9 @@ def main_path() -> tuple[dict, dict]:
         "sim_s", "overlap_cold_s", "overlap_warm_s", "assemble_s", "eval_s")}))
     _say("c4 stage timers (host clock, both overlap calls summed):", json.dumps(
         {k: round(v, 3) for k, v in sorted(report["seconds"].items())}))
-    _say("c4 kernel families:", json.dumps(
-        {k: v for k, v in counters.items() if k.startswith("overlap.family.")}, sort_keys=True))
-    _say("c4 wide-band retries:", json.dumps(
-        {k: v for k, v in counters.items() if k.startswith("overlap.wide_band_retries")}, sort_keys=True))
+    shapes = _say_overlap_counters("c4", counters)
     _say("c4 launches:", json.dumps(launches), "per stage:", json.dumps(
         {k: row[k] for k in ("launches_overlap", "launches_overlap_warm", "launches_assemble")}))
-    shapes = {k: v for k, v in sorted(counters.items()) if k.startswith("kernel.")}
-    _say("c4 launch shapes (pairs; .launches):", json.dumps(shapes))
     for stage in ("launches_overlap", "launches_assemble"):
         for k in ("myers_fwd", "myers_rev"):
             if row[stage][k] <= 0:
@@ -957,9 +988,138 @@ def tab2_tier(int_rate: float) -> tuple[dict, dict]:
     return launches, cases
 
 
+def _cli(*argv) -> float:
+    """Host-clock seconds of one ``phasm_tpu_torch.cli.main`` call, which
+    ends in a device sync."""
+    import torch
+
+    from phasm_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def staged_cli() -> None:
+    """Phase 8: the staged CLI on the card (see the module docstring)."""
+    import filecmp
+    import tempfile
+
+    import numpy as np
+
+    from phasm_tpu_torch import configs, metrics
+    from phasm_tpu_torch.io import daligner, fasta
+    from phasm_tpu_torch.overlap.engine import overlap_reads
+    from phasm_tpu_torch.sim import simulate_reads
+
+    rungs = {r.name.split("_")[0]: r for r in configs.ladder()}
+    with tempfile.TemporaryDirectory(prefix="phasm_staged_cli_") as d:
+        for tag, want in LADDER_R5_ALIGNMENTS.items():
+            rung = rungs[tag]
+            rs, _ = simulate_reads(**rung.sim)
+            fa, npz = f"{d}/{tag}.fa", f"{d}/{tag}.a.npz"
+            fasta.write_fasta(fa, [(rs.names[i], rs.oriented_str(2 * i)) for i in range(rs.n_reads)])
+            overlap = ("overlap", fa, "--min-overlap", rung.overlap.min_overlap, "--device", "cuda")
+            metrics.reset()
+            _zero_launches()
+            secs = _cli(*overlap, "--out", npz)
+            launches = configs.launch_counts()
+            counters = metrics.report()["counters"]
+            table = daligner.load_table_npz(npz)
+            _say(f"  {tag} staged overlap: {len(table)} alignments (LADDER_r5 {want}), "
+                 f"{rs.n_reads} reads, {secs:.3f} s; launches {json.dumps(launches)}")
+            _say_overlap_counters(f"  {tag}", counters)
+            if len(table) != want:
+                raise AssertionError(f"{tag}: staged overlap gave {len(table)} alignments, "
+                                     f"LADDER_r5 has {want}")
+            # kernels 1 and 2 serve the Myers family, kernel 3 the W-band family:
+            # each must have launched exactly when the routing sent it pairs
+            routed = {fam: any(v > 0 for k, v in counters.items()
+                               if k.startswith(f"overlap.family.{fam}."))
+                      for fam in ("myers", "wband")}
+            want_launch = {"myers_fwd": True, "myers_rev": True, "wband": routed["wband"]}
+            wrong = {k: n for k, n in launches.items() if (n > 0) != want_launch[k]}
+            if wrong or not routed["myers"]:
+                raise AssertionError(f"{tag}: launches {launches} do not follow the routing "
+                                     f"(families routed: {routed})")
+            if not routed["wband"]:
+                _say(f"  {tag}: the routing sent no pair to the W-band family (kernel 3)")
+            if tag != "c4":
+                continue
+
+            # c4: the stage file against the in-process table and the LAdump text
+            mem = overlap_reads(rs, rung.overlap, device="cuda")
+            if not (np.array_equal(table.as_matrix(), mem.as_matrix()) and mem.win is not None
+                    and np.array_equal(table.win, mem.win)):
+                raise AssertionError("c4: the staged .npz differs from overlap_reads in process")
+            las_s = _cli(*overlap, "--out", f"{d}/c4.a.las")
+            with open(f"{d}/c4.a.las") as fh:
+                las = daligner.parse_local_alignments(fh)
+            if not np.array_equal(las.as_matrix(), table.as_matrix()):
+                raise AssertionError("c4: the LAdump round trip differs from the .npz table")
+
+            # c4: filter -> layout -> phase on the card, phase again on the CPU
+            pc = rung.pipeline
+            stage_s = dict(overlap=secs, overlap_las=las_s)
+            stage_s["filter"] = _cli("filter", fa, npz, "--out", f"{d}/c4.f.npz",
+                                     "--min-read-length", pc.min_read_length,
+                                     "--min-overlap-length", pc.min_overlap_length,
+                                     "--max-error-rate", pc.max_error_rate)
+            stage_s["layout"] = _cli("layout", fa, f"{d}/c4.f.npz", "--out", f"{d}/c4.g.gfa2",
+                                     "--length-fuzz", pc.length_fuzz)
+            for dev in ("cuda", "cpu"):
+                stage_s[f"phase_{dev}"] = _cli(
+                    "phase", fa, f"{d}/c4.g.gfa2", npz, "--out", f"{d}/c4.h.{dev}.fa",
+                    "--read-assignment", f"{d}/c4.h.{dev}.tsv", "--ploidy", pc.phase.ploidy,
+                    "--device", dev)
+            n_hap = sum(1 for _ in fasta.iter_fasta(f"{d}/c4.h.cuda.fa"))
+            with open(f"{d}/c4.h.cuda.tsv") as fh:
+                n_assigned = sum(1 for _ in fh) - 1
+            _say("  c4 staged stage seconds:", json.dumps(stage_s))
+            _say(f"  c4 staged phase: {n_hap} haplotigs, {n_assigned} read assignments")
+            for ext in ("fa", "tsv"):
+                if not filecmp.cmp(f"{d}/c4.h.cuda.{ext}", f"{d}/c4.h.cpu.{ext}", shallow=False):
+                    raise AssertionError(f"c4: phase's .{ext} differs between the card and the CPU")
+            if n_hap <= 0 or n_assigned <= 0:
+                raise AssertionError("c4: the staged phase wrote no haplotigs or no assignments")
+
+
+def rung_end_to_end(tag: str) -> dict:
+    """One ladder rung end to end on the card (``configs.run_rung``), its
+    row beside the reference ladder's (``LADDER_r5.jsonl``).  Not a phase
+    of ``main``: a rung's round-2 polish runs minutes on the host.  Run
+    alone: ``python -c "import chip_smoke as c; c.build(); c.rung_end_to_end('c3')"``.
+    Prints the row, the stage timers, kernel families, wide-band retries,
+    launch shapes, and every column the two rows share with its two values
+    where they differ; returns the row."""
+    from pathlib import Path
+
+    from phasm_tpu_torch import configs, metrics
+
+    rung = next(r for r in configs.ladder() if r.name.split("_")[0] == tag)
+    with open(Path(__file__).resolve().parent / "LADDER_r5.jsonl") as fh:
+        ref = next(row for row in map(json.loads, fh) if row["name"] == rung.name)
+    metrics.reset()
+    _zero_launches()
+    row = configs.run_rung(rung, device="cuda")
+    report = metrics.report()
+    _say(f"{tag} row:", json.dumps(row, sort_keys=True))
+    _say(f"{tag} stage timers (host clock, both overlap calls summed):", json.dumps(
+        {k: round(v, 3) for k, v in sorted(report["seconds"].items())}))
+    _say_overlap_counters(tag, report["counters"])
+    skip = ("name", "backend") + tuple(k for k in ref if k.endswith("_s"))
+    shared = [k for k in ref if k in row and k not in skip]
+    diff = {k: [row[k], ref[k]] for k in shared if row[k] != ref[k]}
+    _say(f"{tag} vs LADDER_r5 ({len(shared)} shared columns), differing [port, reference]:",
+         json.dumps(diff))
+    return row
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
     import phasm_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -983,6 +1143,8 @@ def main() -> int:
     tab2_launches, tab2_checks = tab2_tier(int_rate)
     launches.update(tab2_launches)
     checks.update(tab2_checks)
+    _say("staged CLI (overlap on c1 to c5; c4 through filter, layout, phase):")
+    staged_cli()
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         recs = checks[name]
@@ -995,6 +1157,7 @@ def main() -> int:
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep.get("library_ms"), at=rep["case"], cases=recs,
         ))
+    _say(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     _say(json.dumps(line))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

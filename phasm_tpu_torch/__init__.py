@@ -15,7 +15,8 @@ Layer map (counterpart of each reference module in brackets):
   _build        nvcc -> ctypes loader for csrc/*.cu (sm_90a)
   native        g++ -> ctypes loader for csrc/phasm_native.cpp  [phasm_tpu.native]
   dna, reads, alignments, metrics, sim, filter, bubbles,
-  bubbles_linear, eval, io/fasta                      host copies [same names]
+  bubbles_linear, eval, io/fasta, io/daligner, io/gfa
+                                                      host copies [same names]
   overlap/      seeding (host copy), myers (plain Myers core) + myers_cuda
                 (kernels 1, 2), extend (plain dp_core, W-band kernels 3
                 and 4, batch entry point), routing, engine (overlap_reads,
@@ -24,7 +25,8 @@ Layer map (counterpart of each reference module in brackets):
   phasing       batched branch scorer + lockstep loop   [phasm_tpu.phasing]
   pipeline      assemble + round-2 polish placement     [phasm_tpu.pipeline]
   configs       the ladder + run_rung                   [phasm_tpu.configs]
-  cli           simulate / pipeline subcommands         [phasm_tpu.cli]
+  cli           simulate, overlap, filter, layout, phase,
+                pipeline subcommands                    [phasm_tpu.cli]
 
 Every CUDA kernel has a plain PyTorch version beside it; a wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for CUDA

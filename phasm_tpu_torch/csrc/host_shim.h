@@ -43,7 +43,9 @@ inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 struct phasm_dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-inline phasm_dim3 blockIdx, threadIdx, blockDim;
+// internal linkage: as inline variables they would be process-wide unique
+// symbols, shared with (and taken over by) another host build loaded first
+static phasm_dim3 blockIdx, threadIdx, blockDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

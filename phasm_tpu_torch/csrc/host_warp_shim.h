@@ -39,8 +39,13 @@ inline int __vimin3_s32(int a, int b, int c) { return std::min(a, std::min(b, c)
 struct phasm_dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local phasm_dim3 blockIdx, threadIdx;
-inline phasm_dim3 blockDim;
+// Internal linkage for every variable here: inline variables are emitted as
+// process-wide unique symbols, so a second host build loaded into the same
+// process (csrc/host_shim.h's plain blockIdx / threadIdx) would bind these
+// names to the first one's objects, and the thread-local accesses then
+// land on a plain global (a segfault).
+static thread_local phasm_dim3 blockIdx, threadIdx;
+static phasm_dim3 blockDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -53,8 +58,8 @@ struct Warp {
   std::barrier<> bar{32};
   long long slot[32];
 };
-inline thread_local Warp* warp;
-inline thread_local int lane;
+static thread_local Warp* warp;
+static thread_local int lane;
 
 inline long long exchange(long long v, int src) {
   warp->slot[lane] = v;

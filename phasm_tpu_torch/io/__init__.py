@@ -1,1 +1,2 @@
-"""I/O of the port (FASTA), host copy of the reference's ``phasm_tpu.io``."""
+"""I/O of the port (FASTA, LAdump / PAF / .npz alignment tables, GFA2
+graphs): host copies of the reference's ``phasm_tpu.io`` modules."""

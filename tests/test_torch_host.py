@@ -13,6 +13,9 @@ import pytest
 
 from test_phasing import chain_fixture
 from test_phasing_batch import many_chains_fixture
+from torch_cases import ensure_reference_native
+
+ensure_reference_native()  # before any test of this worker loads it
 
 PKGS = ("phasm_tpu", "phasm_tpu_torch")
 
@@ -171,6 +174,55 @@ def _fasta(pkg, tmp_path):
             dna.revcomp(rs.codes[0, : rs.lengths[0]]))
 
 
+def _sim_table(pkg):
+    """SIM's reads and its truth alignments (cross-haplotype rows too), with
+    a seeded ``win`` column."""
+    sim = _mod(pkg, "sim")
+    rs, truth = sim.simulate_reads(**SIM)
+    table = sim.truth_alignments(rs, truth, min_overlap=300, cross_hap=True)
+    table.win = np.random.default_rng(5).integers(0, 40, len(table)).astype(np.int32)
+    return rs, table
+
+
+def _daligner(pkg, tmp_path):
+    """LAdump, .npz and PAF round trips of SIM's truth table, and a DBdump
+    stream of its reads parsed back."""
+    daligner = _mod(pkg, "io.daligner")
+    rs, table = _sim_table(pkg)
+    base = str(tmp_path / pkg)
+    daligner.write_ladump(base + ".las", table)
+    with open(base + ".las") as fh:
+        parsed = daligner.parse_local_alignments(fh)
+    daligner.save_table_npz(base + ".npz", table)
+    daligner.write_paf(base + ".paf", table, rs.lengths)
+    dbdump = [f"R {i + 1}\nS {rs.lengths[i]} {rs.oriented_str(2 * i)}\n" for i in range(rs.n_reads)]
+    return (open(base + ".las").read(), open(base + ".paf").read(), parsed,
+            daligner.load_table_npz(base + ".npz"), daligner.read_paf(base + ".paf"),
+            daligner.parse_reads("".join(dbdump).splitlines()))
+
+
+def _gfa(pkg, tmp_path):
+    """GFA2 of SIM's string graph (reduced, tips cut, every 7th read's rows
+    dropped so that the file leaves reads out), read back and remapped onto
+    the read set; its unitig graph's GFA2."""
+    gfa = _mod(pkg, "io.gfa")
+    graph = _mod(pkg, "graph")
+    rs, table = _sim_table(pkg)
+    drop = np.arange(0, rs.n_reads, 7)
+    table = table.take(~np.isin(table.a_id, drop) & ~np.isin(table.b_id, drop))
+    g = graph.build_string_graph(table, table.classify(rs.lengths), rs.lengths)
+    g, _ = graph.remove_tips(graph.remove_transitive_edges(g, fuzz=300), max_tip_len=4)
+    base = str(tmp_path / pkg)
+    gfa.write_gfa2(base + ".gfa2", g, rs)
+    gfa.write_gfa2(base + ".bare.gfa2", g, rs, sequences=False)
+    back, seg_reads = gfa.read_gfa2(base + ".gfa2")
+    ug = graph.merge_unambiguous_paths(g)
+    gfa.write_gfa2_unitigs(base + ".unitigs.gfa2", ug, rs)
+    return (open(base + ".gfa2").read(), open(base + ".bare.gfa2").read(),
+            open(base + ".unitigs.gfa2").read(), back, seg_reads,
+            gfa.remap_node_ids(back, seg_reads.names, rs), g.n_nodes // 2 - seg_reads.n_reads)
+
+
 def _ladder(pkg):
     return [dataclasses.asdict(c) for c in _mod(pkg, "configs").ladder()]
 
@@ -186,12 +238,16 @@ def _defaults(pkg):
     ]
 
 
-@pytest.mark.parametrize("case", ["eval", "polish", "fasta", "ladder", "defaults"])
+@pytest.mark.parametrize(
+    "case", ["eval", "polish", "fasta", "daligner", "gfa", "ladder", "defaults"]
+)
 def test_host_module_matches_reference(case, tmp_path):
     """evaluate_assembly columns; native pileup polish on a small pileup
     (each package's own build of the library); FASTA round trip and DNA
-    helpers; the evaluation ladder; config defaults and ABI version."""
+    helpers; LAdump / .npz / PAF / DBdump and GFA2 interop; the evaluation
+    ladder; config defaults and ABI version."""
     fn = {"eval": _eval, "polish": _polish, "fasta": lambda p: _fasta(p, tmp_path),
+          "daligner": lambda p: _daligner(p, tmp_path), "gfa": lambda p: _gfa(p, tmp_path),
           "ladder": _ladder, "defaults": _defaults}[case]
     ref, port = fn("phasm_tpu"), fn("phasm_tpu_torch")
     if case == "polish":

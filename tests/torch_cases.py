@@ -1,6 +1,14 @@
 """Case generators shared by the port's CPU tests and its card tests
-(tests/test_torch_extend.py, tests/test_torch_cuda.py).  Imports nothing
-of JAX, so the card tests, which run without it, can use it."""
+(tests/test_torch_extend.py, tests/test_torch_cuda.py), and
+``ensure_reference_native``, which the port's tests call at import.
+Imports nothing of JAX, so the card tests, which run without it, can use
+it."""
+import fcntl
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 
 from test_myers import random_overlap_case
@@ -54,3 +62,44 @@ def resident_pairs(rng, B, la_max, W, err=0.1):
     near_end = LA - int(rng.integers(0, max(W, 2)))
     d0 = np.concatenate([d0, [xd0[0], -xd0[0], near_end]]).astype(np.int32)
     return oriented, lengths, a_oid, b_oid, d0
+
+
+_REPO = Path(__file__).resolve().parent.parent
+REFERENCE_NATIVE = _REPO / "native" / "libphasm_native.so"
+
+
+def ensure_reference_native() -> None:
+    """Build the reference's native library (``native/libphasm_native.so``)
+    when it is missing, with the reference's own g++ command
+    (``phasm_tpu/native.py``), to a temporary name and then ``os.replace``:
+    no process ever finds a partial file there.  Builders in concurrent test
+    workers are serialised with an ``flock``.
+
+    The reference's loader builds onto the final path itself, so workers
+    that load it at once can find another worker's partial file; such a
+    worker's loader returns None and never tries again, and its native
+    polish and seeding fall back to numpy for the rest of its run.  Test
+    modules are imported (collected) in every worker before any test runs,
+    and by then every such build has ended; so a loader in this process
+    that gave None is re-armed here, and loads the complete file at its next
+    call."""
+    if not REFERENCE_NATIVE.exists():
+        lock_dir = _REPO / "build"
+        lock_dir.mkdir(exist_ok=True)
+        with open(lock_dir / "reference_native.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not REFERENCE_NATIVE.exists():
+                tmp = REFERENCE_NATIVE.with_name(f"{REFERENCE_NATIVE.name}.{os.getpid()}.tmp")
+                try:
+                    subprocess.run(
+                        ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+                         "-pthread", "-shared", "-o", str(tmp),
+                         str(REFERENCE_NATIVE.with_name("phasm_native.cpp"))],
+                        check=True, capture_output=True, timeout=600,
+                    )
+                    os.replace(tmp, REFERENCE_NATIVE)
+                finally:
+                    tmp.unlink(missing_ok=True)
+    ref = sys.modules.get("phasm_tpu.native")
+    if ref is not None and ref._lib is None:
+        ref._tried = False
