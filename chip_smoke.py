@@ -42,14 +42,18 @@
    window out of a zero-padded table (``library_ms``);
 7. drives the Myers tab2 tier ``overlap.myers_cuda.myers_compute_tab2``
    (kernels 1 and 2 in their tab2 bodies, which cut their windows out of
-   the blocked table themselves) on c4's W = 64 and W = 128 J = 1024
-   buckets and on c4's W = 64 pairs that fit J = 2048, its two launch
-   counts set to 0 just before and read just after; then holds it against
-   ``myers_pair`` and ``myers_compute_tab``, the windows the tab2 kernels
-   cut (their plain cut) against the table tier's, and the tab2 kernels
-   against the window-fed and resident kernels on every batch and their
-   plain versions on W = 64, J = 1024, exactly, with the kernels' times
-   beside theirs and the three entry points' wall times;
+   the blocked table themselves: the slab body, several lanes a pair, while
+   its warps fit the rule, one pair a thread above) on c4's W = 64 and
+   W = 128 J = 1024 buckets, on c4's W = 64 pairs that fit J = 2048 and on
+   c2's W = 64 J = 1024 bucket (64,070 pairs, over c2's own blocked table),
+   its two launch counts set to 0 just before and read just after; then
+   holds it against ``myers_pair`` and ``myers_compute_tab``, the windows
+   the tab2 kernels cut (their plain cut) against the table tier's, and
+   the tab2 kernels against the window-fed and resident kernels on every
+   batch and their plain versions on c4 W = 64, J = 1024, exactly, with the
+   kernels' times beside theirs, the body each batch ran, the reverse
+   wrapper's column sort where it sorts, and the three entry points' wall
+   times;
 8. drives the staged CLI ``phasm_tpu_torch.cli.main`` on the card: on
    rungs c1 to c5, each rung's simulated reads written as FASTA (named as
    ``simulate`` names them), ``overlap --min-overlap <rung's> --device
@@ -106,10 +110,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 # c4's (band, column bucket)s that the reference runs through its Myers
 # table tier (myers_pallas_compute_tab): Myers-routed, rejected by tab2_fits
 TAB_BUCKETS = ((64, 4096), (64, 8192), (128, 4096))
-# the tab2 tier's batches: c4's (band, column bucket)s that the reference
-# runs through myers_pallas_compute_tab2 (tab2_fits), and W = 64 at J =
-# 2048, the widest J tab2 takes (c4's W = 64 pairs whose need fits it)
-TAB2_BATCHES = ((64, 1024), (128, 1024), (64, 2048))
+# the tab2 tier's batches, (rung, band, column bucket): c4's buckets that the
+# reference runs through myers_pallas_compute_tab2 (tab2_fits), W = 64 at J
+# = 2048, the widest J tab2 takes (c4's W = 64 pairs whose need fits it),
+# and c2's W = 64 J = 1024 bucket (64,070 pairs), the densest rung's, which
+# fills the card at one pair a thread
+TAB2_BATCHES = (("c4", 64, 1024), ("c4", 128, 1024), ("c4", 64, 2048), ("c2", 64, 1024))
 
 # integer ops per unit of work, counted from the kernel sources: the Myers
 # word step (csrc/myers.cu word_step + select_eq) per band word and column;
@@ -193,21 +199,25 @@ def build() -> float:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             _say("  ptxas:", line.strip())
-    wband = {k: v for k, v in ptxas_table(_build.build_info["log"]).items() if "wband" in k}
-    _say("ptxas, W-band kernels (registers, stack bytes, spill stores, spill loads):", json.dumps(wband))
-    spilled = [k for k, v in wband.items() if (v[2] or 0) + (v[3] or 0) > 0]
+    table = ptxas_table(_build.build_info["log"])
+    checked = {k: v for k, v in table.items() if "wband" in k or "tab2" in k}
+    _say("ptxas, W-band and tab2 kernels (registers, stack bytes, spill stores, spill loads):",
+         json.dumps(checked))
+    spilled = [k for k, v in checked.items() if (v[2] or 0) + (v[3] or 0) > 0]
     if spilled:
-        raise AssertionError(f"W-band kernels spill registers: {spilled}")
+        raise AssertionError(f"W-band or tab2 kernels spill registers: {spilled}")
     return dt
 
 
 def ptxas_table(log: str) -> dict:
     """{entry: [registers, stack bytes, spill store bytes, spill load bytes]}
-    from nvcc's -Xptxas -v output.  The W-band kernels are named with their
-    template arguments: kernel 3 ``wband_kernel<lanes a pair, cells a
-    lane>`` (full bands) and ``wband_masked_kernel<...>`` (narrower ones),
-    kernel 4 ``wband_dense_kernel<cells a lane, fast>``; the others keep
-    their mangled names."""
+    from nvcc's -Xptxas -v output.  The W-band and tab2 kernels are named
+    with their template arguments: kernel 3 ``wband_kernel<lanes a pair,
+    cells a lane>`` (full bands) and ``wband_masked_kernel<...>`` (narrower
+    ones), kernel 4 ``wband_dense_kernel<cells a lane, fast>``, the tab2
+    kernels ``myers_{fwd,rev}_tab2_kernel<K>`` (one pair a thread) and
+    ``myers_{fwd,rev}_tab2_slab_kernel<K, M>`` (M band words a lane,
+    ceil(K / M) lanes a pair); the others keep their mangled names."""
     import re
 
     table, entry = {}, None
@@ -215,7 +225,7 @@ def ptxas_table(log: str) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
-            w = re.search(r"\d+(wband_\w*?kernel)I((?:L[ib]\d+E)+)E", entry)
+            w = re.search(r"\d+((?:wband|myers)_\w*?kernel)I((?:L[ib]\d+E)+)E", entry)
             if w:
                 entry = f"{w.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', w.group(2)))}>"
             table[entry] = [None, None, None, None]
@@ -399,10 +409,12 @@ def tab2_fwd_bound(lb, W: int, J: int, int_rate: float) -> dict:
 
 def tab2_rev_bound(jend, m0r, W: int, J: int, int_rate: float) -> dict:
     """Tab2 kernel 2: rev_K words x 17 ops per column, plus its cut's
-    funnel shifts (csrc/myers.cu Tab2Rev: 4 per window word it loads, 2 per
-    block of packed codes); bytes: two 16-byte table words per window word
-    at or above the reversed prefix (words k < -m0r are 0, not loaded),
-    three packed flip-b words a block, 20 bytes in and 8 out per pair."""
+    funnel shifts (csrc/myers.cu funnel_eq: 4 per window word at or above
+    the reversed prefix, 2 per block of packed codes); bytes: each 16-byte
+    table word a pair's windows span read once (window word k is funnelled
+    from table words k and k + 1, so n words need n + 1; words k < -m0r are
+    0, not loaded), two packed flip-b words a block and one more for the
+    bit offset, 20 bytes in and 8 out per pair."""
     from phasm_tpu_torch.overlap.myers import rev_K
 
     K = rev_K(W)
@@ -410,7 +422,8 @@ def tab2_rev_bound(jend, m0r, W: int, J: int, int_rate: float) -> dict:
     blocks = (cols + 31) // 32
     words = K + (blocks - 1).clamp(min=0)
     loaded = (words - (-m0r.long()).clamp(min=0)).clamp(min=0)
-    nbytes = 32 * int(loaded.sum()) + 12 * int(blocks.sum()) + 28 * cols.numel()
+    spans = int((loaded + (loaded > 0).long()).sum())
+    nbytes = 16 * spans + 8 * int(blocks.sum()) + 32 * cols.numel()
     ops = MYERS_OPS_PER_WORD * K * int(cols.sum()) + 4 * int(loaded.sum()) + 2 * int(blocks.sum())
     return _bound(ops, nbytes, int_rate)
 
@@ -528,8 +541,9 @@ def compare_trees(*trees: str, reps: int = 30, timer: str = "resident_myers_ms")
     order, then reversed (for two trees: parent, change, change, parent).
     This script is copied into each tree as ``_chip_smoke_timer.py``, so
     every tree is timed by the same code.  timer: ``resident_myers_ms``
-    (kernels 1 and 2, [fwd ms, rev ms] a bucket) or ``wband_ms`` (kernels 4
-    and 3, [ms] a batch).  Prints each run and returns {tree: {label: [ms
+    (kernels 1 and 2, [fwd ms, rev ms] a bucket), ``wband_ms`` (kernels 4
+    and 3, [ms] a batch) or ``tab2_ms`` (tab2 kernels 1 and 2, [fwd ms, rev
+    ms] a phase-7 batch).  Prints each run and returns {tree: {label: [ms
     means]}}."""
     import shutil
 
@@ -882,52 +896,197 @@ def table_tier(int_rate: float) -> tuple[dict, dict]:
     return launches, cases
 
 
+def _tab2_batches():
+    """Phase 7's batches: [(label, reads, blocked table, W, J, a, b, d)], each
+    rung's read set and blocked table on the card (built once a rung), the
+    pairs as device index vectors.  It uses only port APIs as old as the
+    tab2 tier, so ``tab2_ms`` can time an older tree."""
+    import numpy as np
+
+    from phasm_tpu_torch._build import index_tensors
+    from phasm_tpu_torch.configs import ladder
+    from phasm_tpu_torch.overlap.routing import route, tab2_fits
+    from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables
+
+    rungs = {r.name.split("_")[0]: r for r in ladder()}
+    seeded, batches = {}, []
+    for tag, W, J in TAB2_BATCHES:
+        assert route("myers_pallas", W, J) == "myers" and tab2_fits(W, J), (W, J)
+        if tag not in seeded:
+            rs, ka, kb, kd, la, lb = _candidates(rungs[tag], 64)
+            reads = DeviceReads.from_reads(rs, "cuda")
+            seeded[tag] = (reads, MyersBlockedTables.from_reads(reads), ka, kb, kd, la, lb)
+        reads, t2, ka, kb, kd, la, lb = seeded[tag]
+        if J == 2048:  # no c4 bucket: the W = 64 pairs whose need fits
+            idx = np.nonzero(np.minimum(lb, la - kd + W).astype(np.int64) + W <= J)[0]
+        else:
+            idx = _bucket(rungs[tag], ka, kd, la, lb, W, J)
+        batches.append((f"{tag}.W{W}.J{J}", reads, t2, W, J,
+                        *index_tensors(reads.device, ka[idx], kb[idx], kd[idx])))
+    return batches
+
+
+def tab2_ms(reps: int = 30) -> dict:
+    """Tab2 kernels 1 and 2 on phase 7's batches: {label: [fwd ms, rev ms]},
+    each the mean of reps launches after three warm-up calls, the reverse
+    pass at the forward pass's ends.  It uses only port APIs as old as the
+    tab2 tier, so a copy of this script times an older tree on the same card
+    (``compare_trees``)."""
+    from phasm_tpu_torch.overlap import myers as plain
+    from phasm_tpu_torch.overlap import myers_cuda as MC
+
+    out = {}
+    for label, reads, t2, W, J, a, b, d in _tab2_batches():
+        fw, ms_f = _warm_time(lambda: MC.myers_fwd_tab2(t2, reads.lengths, a, b, d, W, J), reps)
+        iend, jend = (fw[1] + 32 * plain.fwd_anchor(d, W)).int(), fw[2]
+        _, ms_r = _warm_time(lambda: MC.myers_rev_tab2(t2, a, b, d, iend, jend, W, J), reps)
+        out[label] = [ms_f, ms_r]
+    return out
+
+
+def _tab2_variant_lib():
+    """csrc/myers.cu built once more with ``-DPHASM_TAB2_FORCE``, for
+    ``tab2_bodies_ms``: its ``phasm_tab2_force(L)`` makes every batch run one
+    pair a thread (L = 1), the slab body at L lanes a pair (2..5) or the
+    fixed rule (L = 0).  A measurement build only: the port's library has no
+    such hook."""
+    import ctypes
+
+    from phasm_tpu_torch import _build
+
+    out = _build.BUILD_DIR / "tab2_bodies"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libmyers_bodies.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DPHASM_TAB2_FORCE", "-shared", "-o", str(so),
+                    str(_build._CSRC / "myers.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    for name in ("phasm_myers_fwd_tab2", "phasm_myers_rev_tab2", "phasm_myers_tab2_lanes"):
+        getattr(lib, name).argtypes = _build.ENTRIES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.phasm_tab2_force.argtypes = [ctypes.c_int]
+    return lib
+
+
+# tab2_bodies_ms's cuts of phase 7's batches, between the slab's and the
+# thread body's measured wins: (batch, pairs kept)
+TAB2_CUTS = (("c2.W64.J1024", 6000), ("c2.W64.J1024", 8000), ("c2.W64.J1024", 10000),
+             ("c2.W64.J1024", 12000), ("c2.W64.J1024", 14000), ("c2.W64.J1024", 16000),
+             ("c4.W64.J2048", 4000), ("c4.W64.J2048", 6000), ("c4.W64.J2048", 8000),
+             ("c4.W64.J2048", 10000), ("c4.W64.J2048", 12000), ("c4.W64.J2048", 14000))
+
+
+def tab2_bodies_ms(reps: int = 30) -> dict:
+    """Both tab2 bodies on phase 7's batches and on TAB2_CUTS, the evidence
+    for the entries' fixed body rule (not part of ``main``; about 4 min
+    with the builds):
+    {label: {...}} with, for tab2 kernels 1 and 2, the one-pair-a-thread
+    body (the reverse pass in pair order, and in column order with the sort
+    inside and alone), the slab body at 2..5 lanes a pair, and the slab's
+    reverse pass on pairs already in column order; each the mean of reps
+    launches after three warm-up calls, every output held equal to the
+    thread body's."""
+    import torch
+
+    from phasm_tpu_torch.overlap import myers as plain
+    from phasm_tpu_torch.overlap.extend import column_order
+
+    lib = _tab2_variant_lib()
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def fwd(t2, lengths, a, b, d, W, J):
+        outs = torch.empty((4, a.shape[0]), dtype=torch.int32, device=a.device).unbind()
+        assert lib.phasm_myers_fwd_tab2(
+            a.data_ptr(), b.data_ptr(), d.data_ptr(), lengths.data_ptr(), t2.win.data_ptr(), t2.n_o,
+            plain.blocked_counts(t2.LA)[0], a.shape[0], W, J, *(o.data_ptr() for o in outs),
+            stream()) == 0
+        return outs
+
+    def rev(t2, a, b, d, ie, je, W, J, order=None):
+        outs = torch.empty((2, a.shape[0]), dtype=torch.int32, device=a.device).unbind()
+        if order is None:
+            order = torch.arange(a.shape[0], device=a.device)
+        NBb, NBc = plain.blocked_counts(t2.LA)
+        assert lib.phasm_myers_rev_tab2(
+            order.data_ptr(), a.data_ptr(), b.data_ptr(), d.data_ptr(), ie.data_ptr(), je.data_ptr(),
+            t2.win.data_ptr(), t2.LA, t2.n_o, NBb, NBc, a.shape[0], W, J,
+            *(o.data_ptr() for o in outs), stream()) == 0
+        return outs
+
+    import numpy as np
+
+    batches = _tab2_batches()
+    by_label = {bt[0]: bt for bt in batches}
+    for label, n in TAB2_CUTS:  # seeded random subsets, kept in batch order
+        _, reads, t2, W, J, a, b, d = by_label[label]
+        keep = np.sort(np.random.default_rng(n).choice(a.shape[0], n, replace=False))
+        keep = torch.from_numpy(keep).to(a.device)
+        batches.append((f"{label}.cut{n}", reads, t2, W, J, a[keep], b[keep], d[keep]))
+    out = {}
+    for label, reads, t2, W, J, a, b, d in batches:
+        r = {"pairs": a.shape[0]}
+        lib.phasm_tab2_force(1)
+        ref_f, r["fwd_thread"] = _warm_time(lambda: fwd(t2, reads.lengths, a, b, d, W, J), reps)
+        iend, jend = (ref_f[1] + 32 * plain.fwd_anchor(d, W)).int(), ref_f[2]
+        ref_r, r["rev_thread_pair_order"] = _warm_time(lambda: rev(t2, a, b, d, iend, jend, W, J), reps)
+        _, r["rev_thread_sorted"] = _warm_time(
+            lambda: rev(t2, a, b, d, iend, jend, W, J, column_order(jend, J)), reps)
+        srt, r["sort"] = _warm_time(lambda: column_order(jend, J), reps)
+        err = 0
+        for L in (2, 3, 4, 5):
+            lib.phasm_tab2_force(L)
+            f, r[f"fwd_slab{L}"] = _warm_time(lambda: fwd(t2, reads.lengths, a, b, d, W, J), reps)
+            v, r[f"rev_slab{L}"] = _warm_time(lambda: rev(t2, a, b, d, iend, jend, W, J), reps)
+            err = max(err, _max_abs_err(f, ref_f), _max_abs_err(v, ref_r))
+        lib.phasm_tab2_force(0)
+        r["rule"] = [lib.phasm_myers_tab2_lanes(a.shape[0], W, J, rev_) for rev_ in (0, 1)]
+        lib.phasm_tab2_force(r["rule"][1] if r["rule"][1] > 1 else 2)
+        a2, b2, d2, i2, j2 = (t[srt].contiguous() for t in (a, b, d, iend, jend))
+        _, r["rev_slab_presorted"] = _warm_time(lambda: rev(t2, a2, b2, d2, i2, j2, W, J), reps)
+        lib.phasm_tab2_force(0)
+        r["max_abs_err"] = err
+        out[label] = r
+        _say(f"  tab2 bodies {label}: {json.dumps(r)}")
+        if err:
+            raise AssertionError(f"tab2 bodies {label}: the bodies disagree")
+    return out
+
+
 def tab2_tier(int_rate: float) -> tuple[dict, dict]:
     """The tab2 tier: ``myers_compute_tab2`` on TAB2_BATCHES, its two launch
     counts set to 0 just before and read just after; then the checks and
     timings on the same pairs.  Returns (launches, {name: case dicts}).
     Raises on any disagreement."""
-    import numpy as np
-
-    from phasm_tpu_torch._build import index_tensors
-    from phasm_tpu_torch.configs import ladder
     from phasm_tpu_torch.overlap import myers as plain
     from phasm_tpu_torch.overlap import myers_cuda as MC
-    from phasm_tpu_torch.overlap.routing import route, tab2_fits
-    from phasm_tpu_torch.state import DeviceReads, MyersBlockedTables, MyersTables
+    from phasm_tpu_torch.overlap.extend import column_order
+    from phasm_tpu_torch.state import MyersBlockedTables, MyersTables
 
-    c4 = next(r for r in ladder() if r.name.startswith("c4"))
-    rs, ka, kb, kd, la, lb = _candidates(c4, 64)
-    reads = DeviceReads.from_reads(rs, "cuda")
-    t2, build_ms = _event_once(lambda: MyersBlockedTables.from_reads(reads))
-    _say(f"c4 blocked table: win {list(t2.win.shape)} (n_o {t2.n_o}, LA {t2.LA}), "
-         f"{t2.nbytes} bytes, built in {build_ms:.1f} ms")
-    tables = MyersTables.from_reads(reads)  # the table tier, held beside it
-    batches = []
-    for W, J in TAB2_BATCHES:
-        assert route("myers_pallas", W, J) == "myers" and tab2_fits(W, J), (W, J)
-        if J == 2048:  # no c4 bucket: the W = 64 pairs whose need fits
-            idx = np.nonzero(np.minimum(lb, la - kd + W).astype(np.int64) + W <= J)[0]
-        else:
-            idx = _bucket(c4, ka, kd, la, lb, W, J)
-        batches.append((W, J, *index_tensors(reads.device, ka[idx], kb[idx], kd[idx])))
+    batches = _tab2_batches()
+    tables = {}  # the table tier's tables, held beside it, a read set each
+    for label, reads, t2, *_ in batches:
+        if id(reads) not in tables:
+            _, build_ms = _event_once(lambda: MyersBlockedTables.from_reads(reads))
+            _say(f"{label.split('.')[0]} blocked table: win {list(t2.win.shape)} (n_o {t2.n_o}, "
+                 f"LA {t2.LA}), {t2.nbytes} bytes, built in {build_ms:.1f} ms")
+            tables[id(reads)] = MyersTables.from_reads(reads)
 
     MC.myers_fwd_tab2_launches = MC.myers_rev_tab2_launches = 0
     entry = []  # (outputs, wall ms) of each batch's first call
-    for W, J, a, b, d in batches:
+    for label, reads, t2, W, J, a, b, d in batches:
         before = (MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches)
         entry.append(_wall_ms(lambda: MC.myers_compute_tab2(t2, reads.lengths, a, b, d, W, J)))
         if (MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches) != (before[0] + 1, before[1] + 1):
-            raise AssertionError(f"myers_compute_tab2 W{W} J{J} did not launch both tab2 kernels")
+            raise AssertionError(f"myers_compute_tab2 {label} did not launch both tab2 kernels")
     launches = {"myers_fwd_tab2": MC.myers_fwd_tab2_launches,
                 "myers_rev_tab2": MC.myers_rev_tab2_launches}
     _say("tab2 tier launches:", json.dumps(launches))
 
     cases: dict = {k: [] for k in launches}
-    for (W, J, a, b, d), (out, wall_ms) in zip(batches, entry):
-        label, B = f"c4.W{W}.J{J}", a.shape[0]
+    for (label, reads, t2, W, J, a, b, d), (out, wall_ms) in zip(batches, entry):
+        B, tables_r = a.shape[0], tables[id(reads)]
+        bodies = [MC.tab2_body(B, W, J, rev) for rev in (False, True)]
         want, pair_ms = _wall_ms(lambda: MC.myers_pair(reads, a, b, d, W, J))
-        tab_out, tab_ms = _wall_ms(lambda: MC.myers_compute_tab(tables, reads.lengths, a, b, d, W, J))
+        tab_out, tab_ms = _wall_ms(lambda: MC.myers_compute_tab(tables_r, reads.lengths, a, b, d, W, J))
         _, warm_ms = _wall_ms(lambda: MC.myers_compute_tab2(t2, reads.lengths, a, b, d, W, J))
         entry_err = max(_max_abs_err(out, want), _max_abs_err(out, tab_out))
 
@@ -935,7 +1094,7 @@ def tab2_tier(int_rate: float) -> tuple[dict, dict]:
         la_t, lb_t = reads.lengths[a.long() >> 1], reads.lengths[b.long() >> 1]
         m0 = plain.fwd_anchor(d, W)
         fw, ms_f = _warm_time(lambda: MC.myers_fwd_tab2(t2, reads.lengths, a, b, d, W, J), MYERS_REPS)
-        win1 = plain.fwd_prep_tab(tables.peq, tables.bpk, a, b, la_t, d, W, J)
+        win1 = plain.fwd_prep_tab(tables_r.peq, tables_r.bpk, a, b, la_t, d, W, J)
         win2 = plain.fwd_prep_tab2(t2.win, reads.lengths, a, b, d, t2.LA, W, J)
         fwin, ms_fw = _warm_time(lambda: MC.myers_fwd_win(la_t, lb_t, d, win1[0], win1[1], W, J),
                                  MYERS_REPS)
@@ -946,8 +1105,11 @@ def tab2_tier(int_rate: float) -> tuple[dict, dict]:
 
         # tab2 kernel 2 beside the window-fed kernel 2 on rev_prep_tab's windows
         rw, ms_r = _warm_time(lambda: MC.myers_rev_tab2(t2, a, b, d, iend, jend, W, J), MYERS_REPS)
+        sort_ms = None  # the reverse wrapper's column sort, inside ms_r, timed alone
+        if bodies[1] == "thread":
+            _, sort_ms = _warm_time(lambda: column_order(jend, J), MYERS_REPS)
         rwin1, prep_ms = _event_once(lambda: plain.rev_prep_tab(
-            tables.peq, tables.bpk, a, b, tables.LA, iend, jend, d, W, J))
+            tables_r.peq, tables_r.bpk, a, b, tables_r.LA, iend, jend, d, W, J))
         rwin2, prep2_ms = _event_once(lambda: plain.rev_prep_tab2(
             t2.win, a, b, t2.LA, iend, jend, d, W, J))
         row_off = rwin1[2].int()
@@ -956,36 +1118,71 @@ def tab2_tier(int_rate: float) -> tuple[dict, dict]:
         rres, ms_rr = _warm_time(lambda: MC.myers_rev(reads, a, b, d, iend, jend, W, J), MYERS_REPS)
         err_r = max(_max_abs_err(rwin2, rwin1), _max_abs_err(rw, rwn), _max_abs_err(rw, rres))
         plain_f = plain_r = None
-        if (W, J) == (64, 1024):  # the plain Myers core costs seconds a batch
+        thread = None
+        if label == "c4.W64.J1024":  # the plain Myers core costs seconds a batch
             pf, plain_f = _event_once(lambda: plain.fwd_tab2_plain(
                 t2.win, reads.lengths, a, b, d, t2.LA, W, J))
             pr, plain_r = _event_once(lambda: plain.rev_tab2_plain(
                 t2.win, a, b, t2.LA, iend, jend, d, W, J))
             err_f = max(err_f, _max_abs_err(fw, pf))
             err_r = max(err_r, _max_abs_err(rw, pr))
+            thread = _tab2_thread_case(t2, reads, a, b, d, iend, jend, W, J, pf, pr, int_rate)
         walls = dict(entry_wall_ms=wall_ms, entry_warm_ms=warm_ms, myers_pair_wall_ms=pair_ms,
                      compute_tab_wall_ms=tab_ms)
         cases["myers_fwd_tab2"].append(dict(
-            case=label, pairs=B, W=W, J=J, ms=ms_f, plain_ms=plain_f, window_fed_ms=ms_fw,
-            resident_ms=ms_fr, max_abs_err=max(err_f, entry_err), **walls,
+            case=label, pairs=B, W=W, J=J, body=bodies[0], ms=ms_f, plain_ms=plain_f,
+            window_fed_ms=ms_fw, resident_ms=ms_fr, max_abs_err=max(err_f, entry_err), **walls,
             **tab2_fwd_bound(lb_t, W, J, int_rate)))
         m0r = plain.rev_anchor(iend.long(), jend.long(), d.long(), W)
         cases["myers_rev_tab2"].append(dict(
-            case=label, pairs=B, W=W, J=J, ms=ms_r, plain_ms=plain_r, window_fed_ms=ms_rw,
-            resident_ms=ms_rr, rev_prep_tab_ms=prep_ms, rev_prep_tab2_ms=prep2_ms,
+            case=label, pairs=B, W=W, J=J, body=bodies[1], sort_ms=sort_ms, ms=ms_r, plain_ms=plain_r,
+            window_fed_ms=ms_rw, resident_ms=ms_rr, rev_prep_tab_ms=prep_ms, rev_prep_tab2_ms=prep2_ms,
             max_abs_err=max(err_r, entry_err), **tab2_rev_bound(jend, m0r, W, J, int_rate)))
-        _say(f"  tab2 tier {label}: pairs={B}; entry point {wall_ms:.2f} ms wall (first call), "
-             f"{warm_ms:.2f} ms (again) vs myers_pair {pair_ms:.2f} ms and myers_compute_tab "
-             f"{tab_ms:.2f} ms (max_abs_err {entry_err})")
-        _say(f"  tab2 tier {label}: tab2 fwd {ms_f:.3f} ms vs window-fed {ms_fw:.3f} ms and resident "
+        sort = "no sort" if sort_ms is None else f"rev column sort {sort_ms:.4f} ms"
+        _say(f"  tab2 tier {label}: pairs={B}, bodies fwd {bodies[0]} / rev {bodies[1]} ({sort}); "
+             f"entry point {wall_ms:.2f} ms wall (first call), {warm_ms:.2f} ms (again) vs "
+             f"myers_pair {pair_ms:.2f} ms and myers_compute_tab {tab_ms:.2f} ms "
+             f"(max_abs_err {entry_err})")
+        _say(f"  tab2 tier {label}: tab2 fwd {ms_f:.4f} ms vs window-fed {ms_fw:.3f} ms and resident "
              f"{ms_fr:.3f} ms, bound {cases['myers_fwd_tab2'][-1]['bound_ms']:.4f} ms; tab2 rev "
-             f"{ms_r:.3f} ms vs window-fed {ms_rw:.3f} ms and resident {ms_rr:.3f} ms, bound "
+             f"{ms_r:.4f} ms vs window-fed {ms_rw:.3f} ms and resident {ms_rr:.3f} ms, bound "
              f"{cases['myers_rev_tab2'][-1]['bound_ms']:.4f} ms; rev_prep_tab {prep_ms:.3f} ms "
              f"(plain tab2 cut {prep2_ms:.3f} ms); plain fwd {plain_f} ms, plain rev {plain_r} ms; "
              f"max_abs_err fwd {err_f}, rev {err_r}")
-        if max(entry_err, err_f, err_r) != 0:
+        if thread is not None:  # after the lines above, which read this batch's cases
+            cases["myers_fwd_tab2"].append(thread[0])
+            cases["myers_rev_tab2"].append(thread[1])
+        if max(entry_err, err_f, err_r, *(c["max_abs_err"] for c in thread or ())) != 0:
             raise AssertionError(f"tab2 tier {label}: disagrees with the other tiers or a plain version")
     return launches, cases
+
+
+def _tab2_thread_case(t2, reads, a, b, d, iend, jend, W: int, J: int, pf, pr,
+                      int_rate: float) -> tuple[dict, dict]:
+    """The one-pair-a-thread tab2 bodies held to their plain versions: the
+    batch's pairs repeated until the entries' rule picks one pair a thread
+    for both passes, against the plain outputs of one copy (pf, pr)
+    repeated; (fwd case, rev case), timed, plain_ms None (not re-run)."""
+    from phasm_tpu_torch.overlap import myers as plain
+    from phasm_tpu_torch.overlap import myers_cuda as MC
+
+    B = a.shape[0]
+    copies = next(n for n in range(2, 100)
+                  if all(MC.tab2_body(n * B, W, J, rev) == "thread" for rev in (False, True)))
+    ac, bc, dc, ic, jc = (t.repeat(copies) for t in (a, b, d, iend, jend))
+    fw, ms_f = _warm_time(lambda: MC.myers_fwd_tab2(t2, reads.lengths, ac, bc, dc, W, J), MYERS_REPS)
+    rw, ms_r = _warm_time(lambda: MC.myers_rev_tab2(t2, ac, bc, dc, ic, jc, W, J), MYERS_REPS)
+    err_f = _max_abs_err(fw, [w.repeat(copies) for w in pf])
+    err_r = _max_abs_err(rw, [w.repeat(copies) for w in pr])
+    lb = reads.lengths[bc.long() >> 1]
+    m0r = plain.rev_anchor(ic.long(), jc.long(), dc.long(), W)
+    case = f"c4.W{W}.J{J} x{copies} (one pair a thread)"
+    _say(f"  tab2 tier {case}: pairs={copies * B}, tab2 fwd {ms_f:.4f} ms, rev {ms_r:.4f} ms "
+         f"(column sort inside), max_abs_err vs the plain versions fwd {err_f}, rev {err_r}")
+    common = dict(case=case, pairs=copies * B, W=W, J=J, body="thread", plain_ms=None,
+                  held_to="the plain version of one copy, repeated")
+    return (dict(common, ms=ms_f, max_abs_err=err_f, **tab2_fwd_bound(lb, W, J, int_rate)),
+            dict(common, ms=ms_r, max_abs_err=err_r, **tab2_rev_bound(jc, m0r, W, J, int_rate)))
 
 
 def _cli(*argv) -> float:

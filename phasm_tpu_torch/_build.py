@@ -44,7 +44,8 @@ ENTRIES = {
     "phasm_myers_rev_win": [P, P, P, P, P, I, I, I, P, P, P],
     "phasm_myers_fwd_fetch": [P, P, P, P, I, P, I, I, I, I, P, P, P],
     "phasm_myers_fwd_tab2": [P, P, P, P, P, I, I, I, I, I, P, P, P, P, P],
-    "phasm_myers_rev_tab2": [P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P],
+    "phasm_myers_rev_tab2": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P],
+    "phasm_myers_tab2_lanes": [I, I, I, I],
 }
 
 _lib = None

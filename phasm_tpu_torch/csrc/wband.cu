@@ -89,7 +89,7 @@
 // C entries return cudaGetLastError().  With PHASM_HOST_SHIM defined (a
 // header that supplies the CUDA built-ins and the warp collectives on the
 // host, csrc/host_warp_shim.h) the file builds with a host compiler and the
-// launches run each warp's lanes as threads:
+// launches run each warp's lanes as fibers that meet at every collective:
 // tests/test_torch_wband_hostbuild.py holds it to the plain versions.
 
 #include <climits>

@@ -16,7 +16,10 @@ path (``DeviceExtender``) runs the resident kernels 1 and 2 only; the table
 tier is the entry point ``myers_compute_tab``, the tab2 tier (kernels 1 and
 2 in their tab2 bodies, which cut their windows out of the blocked table
 themselves) the entry point ``myers_compute_tab2``, and the five counts of
-those two tiers stay out of ``configs.launch_counts()``.
+those two tiers stay out of ``configs.launch_counts()``.  The tab2 C
+entries pick their body by batch size (``tab2_body``): the slab body
+(several lanes a pair) in pair order, or one pair a thread, whose reverse
+pass the wrapper hands the column order by jend.
 """
 from __future__ import annotations
 
@@ -331,7 +334,10 @@ def myers_rev_tab2(tables: MyersBlockedTables, a_oid, b_oid, d0, iend, jend, W: 
     if B == 0:
         return outs
     NBb, NBc = blocked_counts(tables.LA)
+    # one pair a thread runs in column order; the slab body in pair order
+    order = column_order(jend, J) if tab2_body(B, W, J, True) == "thread" else None
     err = _build.load().phasm_myers_rev_tab2(
+        None if order is None else order.data_ptr(),
         a_oid.data_ptr(), b_oid.data_ptr(), d0.data_ptr(), iend.data_ptr(), jend.data_ptr(),
         tables.win.data_ptr(), tables.LA, tables.n_o, NBb, NBc, B, W, J,
         *(o.data_ptr() for o in outs), torch.cuda.current_stream(tables.device).cuda_stream,
@@ -340,6 +346,14 @@ def myers_rev_tab2(tables: MyersBlockedTables, a_oid, b_oid, d0, iend, jend, W: 
     myers_rev_tab2_launches += 1
     _build.count_shape("myers_rev_tab2", B, W, J)
     return outs
+
+
+def tab2_body(B: int, W: int, J: int, rev: bool) -> str:
+    """The body tab2 kernel 1 (rev False) or 2 runs on a batch of B pairs,
+    as the C entry's fixed rule picks it: ``"thread"`` (one pair a thread)
+    or ``"slab L"`` (L lanes a pair, ceil(K / L) band words a lane)."""
+    lanes = _build.load().phasm_myers_tab2_lanes(B, W, J, int(rev))
+    return "thread" if lanes == 1 else f"slab {lanes}"
 
 
 def myers_compute_tab2(tables: MyersBlockedTables, lengths, a_oid, b_oid, d0, W: int, J: int):

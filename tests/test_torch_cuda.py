@@ -361,6 +361,30 @@ def test_tab2_kernels_match_plain_and_myers_pair(cuda_reads, B, W, J):
            MC.myers_pair(reads, a, b, d, W, J))
 
 
+@pytest.mark.parametrize("J", [1024, 2048])
+@pytest.mark.parametrize("W", MYERS_W)
+def test_tab2_bodies_match_plain_on_either_side_of_the_rule(cuda_reads, W, J):
+    """Both tab2 bodies == fwd_tab2_plain / rev_tab2_plain: 1,000 pairs run
+    the slab body (several lanes a pair), the same pairs repeated until the
+    rule picks one pair a thread for both passes run that (the reverse pass
+    in column order); each call steps each launch count by one."""
+    reads, (a, b, d) = cuda_reads(900 + W + J, B=1000, la_max=LA_MAX[J], cut=True)
+    t2 = MyersBlockedTables.from_reads(reads)
+    want_f = plain.fwd_tab2_plain(t2.win, reads.lengths, a, b, d, t2.LA, W, J)
+    iend = (want_f[1] + 32 * plain.fwd_anchor(d, W)).int()
+    want_r = plain.rev_tab2_plain(t2.win, a, b, t2.LA, iend, want_f[2], d, W, J)
+    many = next(n for n in range(2, 100)
+                if all(MC.tab2_body(1000 * n, W, J, rev) == "thread" for rev in (False, True)))
+    for copies, body in ((1, "slab"), (many, "thread")):
+        B = 1000 * copies
+        assert all(MC.tab2_body(B, W, J, rev).split()[0] == body for rev in (False, True))
+        ac, bc, dc, ic, jc = (t.repeat(copies) for t in (a, b, d, iend, want_f[2]))
+        n0, r0 = MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches
+        _equal(MC.myers_fwd_tab2(t2, reads.lengths, ac, bc, dc, W, J), [w.repeat(copies) for w in want_f])
+        _equal(MC.myers_rev_tab2(t2, ac, bc, dc, ic, jc, W, J), [w.repeat(copies) for w in want_r])
+        assert (MC.myers_fwd_tab2_launches, MC.myers_rev_tab2_launches) == (n0 + 1, r0 + 1)
+
+
 def test_tab2_kernels_reject_what_they_do_not_take(cuda_reads):
     reads, (a, b, d) = cuda_reads(3, B=4, la_max=200)
     t2 = MyersBlockedTables.from_reads(reads)

@@ -1,15 +1,18 @@
 """The CUDA source of Myers kernels 1 and 2 (``csrc/myers.cu``), built for
-the host with g++ through ``csrc/host_shim.h`` and its grid run as loops,
-== the plain torch versions, integer for integer: the resident kernels
-against ``fwd_plain`` / ``rev_plain``, the window-fed ones against
-``fwd_win_plain`` / ``rev_win_plain`` and the resident ones, the tab2 ones
-against ``fwd_tab2_plain`` / ``rev_tab2_plain`` and the resident ones.
+the host with g++ through ``csrc/host_warp_shim.h`` (a warp's 32 lanes run
+as fibers that meet at every warp collective), == the plain torch
+versions, integer for integer: the resident kernels against ``fwd_plain``
+/ ``rev_plain``, the window-fed ones against ``fwd_win_plain`` /
+``rev_win_plain`` and the resident ones, the tab2 ones (the slab body on
+small batches, one pair a thread on large ones) against ``fwd_tab2_plain``
+/ ``rev_tab2_plain`` and the resident ones.
 
 This guards the kernels' index arithmetic (the column-order permutation,
 the unrolled column groups and their tail, the vector loads at any row
-alignment, the freeze at the pair's own end) on a machine without a card.
-The library is cached in the git-ignored ``build/phasm_tpu_torch/``, keyed
-by the two files' contents and the flags.
+alignment, the freeze at the pair's own end; the slab body's wavefront,
+bubbles and slot moves, its row-la tracker and band-minimum gathers) on a
+machine without a card.  The library is cached in the git-ignored
+``build/phasm_tpu_torch/``, keyed by the two files' contents and the flags.
 """
 import ctypes
 import hashlib
@@ -30,15 +33,15 @@ from test_myers import as_oriented, random_overlap_case
 
 _CSRC = Path(__file__).resolve().parent.parent / "phasm_tpu_torch" / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "build" / "phasm_tpu_torch"
-_FLAGS = ["-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++", "-DPHASM_HOST_SHIM",
-          "-include", str(_CSRC / "host_shim.h")]
+_FLAGS = ["-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-x", "c++", "-DPHASM_HOST_SHIM",
+          "-include", str(_CSRC / "host_warp_shim.h")]
 J = 1024
 
 
 @pytest.fixture(scope="module")
 def lib():
     h = hashlib.sha256()
-    for name in ("host_shim.h", "myers.cu"):
+    for name in ("host_warp_shim.h", "myers.cu"):
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(_FLAGS[:-1]).encode())
     so = _BUILD / f"libmyers_host_{h.hexdigest()[:16]}.so"
@@ -152,30 +155,127 @@ def test_host_built_kernels_match_plain(lib, W):
     _equal(rw, rev)
 
 
+def _top_edge_rows(rng, a, b, la, lb, d0, rows, W):
+    """Rows whose alignment rides the band's top edge: b is an exact copy of
+    a from row 32 m0 + c (c in -1..1), la_rel = 32 q + (-1..1).  Row la's
+    cost then reaches its least (0) in the last column before la's word
+    leaves the band, or one column later, so only the forward slab's
+    post-window +1 keeps every later column from taking the best."""
+    for i, p in enumerate(rows):
+        c, off = i % 3 - 1, (i // 3) % 3 - 1
+        la_rel = 32 * (5 + (5 * i) % 21) + off
+        m0 = int(rng.integers(2, (a.shape[1] - la_rel) // 32 + 1))
+        la[p] = 32 * m0 + la_rel
+        d0[p] = 32 * (m0 + 1) + W // 2 + int(rng.integers(0, 32))  # fwd_anchor(d0, W) == m0
+        a[p, :] = 9
+        a[p, : la[p]] = rng.integers(0, 4, la[p])
+        row = np.concatenate([a[p, 32 * m0 + c : la[p]], rng.integers(0, 4, 400)])[: b.shape[1]]
+        lb[p] = row.size
+        b[p, :] = 9
+        b[p, : lb[p]] = row
+
+
+def _tab2_case(W):
+    """203 pairs at the tab2 bodies' edges (203 is no multiple of any body's
+    pairs a warp): b lengths 0..9 and off the 32-column blocks, d0 swept so
+    that row la (la_rel = la - 32 m0) runs from above the band's anchor
+    through every band word, hence every lane's words, to below the band,
+    and 53 rows whose best at row la falls as la's word leaves the band."""
+    rng = np.random.default_rng(W + 7)
+    a, b, la, lb, d0 = random_overlap_case(rng, B=203, la_max=1100)
+    lb[:8] = [0, 1, 3, 7, 8, 9, 33, 71]
+    lb[8:40] = np.minimum(lb[8:40], rng.integers(10, 400, 32))
+    sweep = np.arange(-W // 2 - 70, 32 * plain.K_of(W) + 100, 11)
+    at = 40 + np.arange(sweep.size)
+    d0[at] = la[at] - sweep
+    _top_edge_rows(rng, a, b, la, lb, d0, range(150, 203), W)
+    oriented, lengths, a_oid, b_oid = as_oriented(a, b, la, lb)
+    reads = DeviceReads.from_arrays(oriented, lengths, "cpu")
+    reads._build_tables()
+    return reads, index_tensors(reads.device, a_oid, b_oid, d0)
+
+
+def _tab2_fwd(lib, t2, lengths, a, b, d, W):
+    fwd = _outs(4, a.shape[0])
+    assert lib.phasm_myers_fwd_tab2(
+        a.data_ptr(), b.data_ptr(), d.data_ptr(), lengths.data_ptr(), t2.win.data_ptr(),
+        t2.n_o, plain.blocked_counts(t2.LA)[0], a.shape[0], W, J,
+        *(o.data_ptr() for o in fwd), None) == 0
+    return fwd
+
+
+def _tab2_rev(lib, t2, a, b, d, iend, jend, W, order=None, err=0):
+    rev = _outs(2, a.shape[0])
+    NBb, NBc = plain.blocked_counts(t2.LA)
+    assert lib.phasm_myers_rev_tab2(
+        None if order is None else order.data_ptr(), a.data_ptr(), b.data_ptr(), d.data_ptr(),
+        iend.data_ptr(), jend.data_ptr(), t2.win.data_ptr(), t2.LA, t2.n_o, NBb, NBc,
+        a.shape[0], W, J, *(o.data_ptr() for o in rev), None) == err
+    return rev
+
+
+def _rev_edges(reads, a, b, W, seed):
+    """Reverse-pass inputs off the forward pass's ends: jend 0..9 and at the
+    32-column block edges, and on some pairs iend far below jend, so the
+    reversed prefix starts below the window (q < -m0r) for the first words
+    and for words that enter the band later."""
+    rng = np.random.default_rng(seed)
+    la = reads.lengths[a.long() >> 1].numpy()
+    lb = reads.lengths[b.long() >> 1].numpy()
+    cols = np.minimum(lb, J)
+    jend = rng.integers(0, cols + 1)
+    edges = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 31, 32, 33, 63, 64, 65, 95, 96, 97])
+    jend[: edges.size] = np.minimum(edges, cols[: edges.size])
+    iend = rng.integers(0, la + 1)
+    far = slice(edges.size, edges.size + 30)
+    jend[far] = cols[far]
+    iend[far] = np.minimum(iend[far], rng.integers(0, 40, 30))
+    return (torch.from_numpy(iend.astype(np.int32)), torch.from_numpy(jend.astype(np.int32)))
+
+
 @pytest.mark.parametrize("W", [64, 128])
 def test_host_built_tab2_kernels_match_plain(lib, W):
-    """The tab2 kernels, which cut their windows out of the blocked table
-    themselves (row clamps, residual shifts, the reverse funnels), ==
-    fwd_tab2_plain / rev_tab2_plain and the resident kernels."""
-    reads, (a, b, d) = _case(W, W)
+    """The tab2 kernels on a batch small enough for the slab body (K lanes
+    a pair), which cut their windows out of the blocked table themselves
+    (row clamps, residual shifts, the reverse funnels), == fwd_tab2_plain /
+    rev_tab2_plain and the resident kernels; the reverse pass also at jend
+    0..9, at block edges and below the reversed prefix."""
+    reads, (a, b, d) = _tab2_case(W)
     B = a.shape[0]
+    assert lib.phasm_myers_tab2_lanes(B, W, J, 0) > 1 and lib.phasm_myers_tab2_lanes(B, W, J, 1) > 1
     t2 = MyersBlockedTables.from_reads(reads)
-    NBb, NBc = plain.blocked_counts(t2.LA)
-    fwd = _outs(4, B)
-    assert lib.phasm_myers_fwd_tab2(
-        a.data_ptr(), b.data_ptr(), d.data_ptr(), reads.lengths.data_ptr(), t2.win.data_ptr(),
-        t2.n_o, NBb, B, W, J, *(o.data_ptr() for o in fwd), None) == 0
+    fwd = _tab2_fwd(lib, t2, reads.lengths, a, b, d, W)
     _equal(fwd, plain.fwd_tab2_plain(t2.win, reads.lengths, a, b, d, t2.LA, W, J))
     iend = (fwd[1] + 32 * plain.fwd_anchor(d, W)).int()
     resident = _fwd(lib, reads, torch.arange(B), a, b, d, W)
     _equal((fwd[0], iend, fwd[2], fwd[3]), resident)
-    rev = _outs(2, B)
-    assert lib.phasm_myers_rev_tab2(
-        a.data_ptr(), b.data_ptr(), d.data_ptr(), iend.data_ptr(), fwd[2].data_ptr(),
-        t2.win.data_ptr(), t2.LA, t2.n_o, NBb, NBc, B, W, J,
-        *(o.data_ptr() for o in rev), None) == 0
+    rev = _tab2_rev(lib, t2, a, b, d, iend, fwd[2], W)
     _equal(rev, plain.rev_tab2_plain(t2.win, a, b, t2.LA, iend, fwd[2], d, W, J))
     _equal(rev, _rev(lib, reads, torch.arange(B), a, b, d, iend, fwd[2], W))
+    ie, je = _rev_edges(reads, a, b, W, seed=W)
+    _equal(_tab2_rev(lib, t2, a, b, d, ie, je, W),
+           plain.rev_tab2_plain(t2.win, a, b, t2.LA, ie, je, d, W, J))
+
+
+@pytest.mark.parametrize("W", [64, 128])
+def test_host_built_tab2_thread_body_matches_plain(lib, W):
+    """Above the slab body's batch size the entries run one pair a thread,
+    the reverse pass in the column order the wrapper passes: the 203 edge
+    pairs repeated past that size == the plain versions of one copy.  With
+    no order there the reverse entry refuses (cudaErrorInvalidValue, 1)."""
+    reads, (a, b, d) = _tab2_case(W)
+    copies = next(n for n in range(2, 200)
+                  if all(lib.phasm_myers_tab2_lanes(a.shape[0] * n, W, J, rev) == 1 for rev in (0, 1)))
+    t2 = MyersBlockedTables.from_reads(reads)
+    want_f = plain.fwd_tab2_plain(t2.win, reads.lengths, a, b, d, t2.LA, W, J)
+    ie, je = _rev_edges(reads, a, b, W, seed=W + 1)
+    want_r = plain.rev_tab2_plain(t2.win, a, b, t2.LA, ie, je, d, W, J)
+    a, b, d, ie, je = (t.repeat(copies) for t in (a, b, d, ie, je))
+    _equal(_tab2_fwd(lib, t2, reads.lengths, a, b, d, W), [w.repeat(copies) for w in want_f])
+    rev = _tab2_rev(lib, t2, a, b, d, ie, je, W, order=MC.column_order(je, J))
+    _equal(rev, [w.repeat(copies) for w in want_r])
+    untouched = _tab2_rev(lib, t2, a, b, d, ie, je, W, order=None, err=1)
+    assert all(bool((o == -7).all()) for o in untouched)
 
 
 def test_column_order_groups_by_blocks_at_either_key_width():

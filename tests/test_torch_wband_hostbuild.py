@@ -1,6 +1,6 @@
 """The CUDA source of W-band kernels 3 and 4 (``csrc/wband.cu``), built for
 the host with g++ through ``csrc/host_warp_shim.h`` (a warp's 32 lanes run
-as threads that meet at every warp collective), == their plain versions,
+as fibers that meet at every warp collective), == their plain versions,
 integer for integer: kernel 3 against ``wband_plain`` at every width class
 on pairs at the resident matrix's edges, in column order and reversed, at a
 J that is no multiple of 8, on a matrix laid against inaccessible pages so
