@@ -83,7 +83,23 @@
    unsharded tables, all equal to this process's; then one warm c4
    ``overlap_reads`` inside ``metrics.device_trace``, whose trace must name
    kernels 1, 2 and 3, and the summed kernel time over the traced call (the
-   device busy share of the overlap stage).
+   device busy share of the overlap stage);
+10. drives the port's ladder runner and headline bench: ``python -m
+   phasm_tpu_torch.ladder --rungs c1 --strict --device cuda --out <tmp>``
+   in a process of its own, whose c1 row must equal ``LADDER_r5.jsonl``'s
+   in every shared column but the name, the backend and the times, with
+   kernels 1 and 2 launched in both overlap calls; c6's (10 Mb, 25,000
+   reads) and c7's (2 Mb diploid) overlap stage alone, ``overlap_reads``
+   in this process with the launch counts set to 0 just before, each
+   table exactly ``LADDER_r5``'s length (437,698 and 148,173) and the
+   launches following the routing, and on c6 a warm call inside
+   ``metrics.device_trace`` (its table equal to the cold one; the device
+   busy share at the scale of the reference's workload); then ``python -m
+   phasm_tpu_torch.bench`` in a process of its own, whose last line must
+   name family ``myers`` with a positive rate, and whose ``#`` lines (the
+   window-fed kernels' rate, versions, card) are printed.
+   ``ladder_rows("c2,c5")`` (not in ``main``) holds the longer rungs'
+   rows to ``LADDER_r5`` the same way.
 
 Each kernel's bound is the larger of its integer operations over the
 card's INT32 rate (SMs x 64 lanes x the maximum SM clock) and its bytes
@@ -151,6 +167,14 @@ WBAND_REPS = 30
 DENSE_BATCHES = (("c4", 64, 4096), ("c4", 128, 4096), ("c3", 64, 12288))
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the reference ladder's n_alignments (LADDER_r5.jsonl) of the two scale
+# rungs, whose overlap stage alone phase 10 runs in process (kept apart from
+# LADDER_R5_ALIGNMENTS: phase 8 writes each of those rungs' reads as FASTA)
+SCALE_ALIGNMENTS = {"c6": 437698, "c7": 148173}
+# the headline bench's metric on the card: W64 J2048 is tab2_fits, and the
+# engine runs the resident kernels 1 and 2 there (family myers)
+BENCH_METRIC = "overlap_alignments_per_sec_per_chip[cuda,production,myers,band64,j2048]"
 
 
 def _say(*a):
@@ -158,27 +182,10 @@ def _say(*a):
 
 
 def environment() -> None:
-    import torch
+    from phasm_tpu_torch import bench
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    _say(smi)  # the card's name and power limit, exactly as nvidia-smi gives them
-    from phasm_tpu_torch import _build
-
-    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
-    try:
-        import triton
-
-        triton_v = triton.__version__
-    except ImportError:
-        triton_v = "not installed"
-    _say(
-        f"versions: python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}, nvcc {nvcc.stdout.strip().splitlines()[-1]}, "
-        f"triton {triton_v}"
-    )
+    _say(bench.card())  # the card's name and power limit, exactly as nvidia-smi gives them
+    _say(f"versions: python {sys.version.split()[0]}, {bench.versions()}")
 
 
 def int32_ops_per_s() -> float:
@@ -1214,6 +1221,23 @@ def _cli(*argv) -> float:
     return time.perf_counter() - t0
 
 
+def _check_routed_launches(tag: str, launches: dict, counters: dict) -> None:
+    """Kernels 1 and 2 serve the Myers family, kernel 3 the W-band family:
+    raise unless each launched exactly when the routing sent it pairs (from
+    the engine's ``overlap.family.*`` counters), and the routing sent pairs
+    to the Myers family."""
+    routed = {fam: any(v > 0 for k, v in counters.items()
+                       if k.startswith(f"overlap.family.{fam}."))
+              for fam in ("myers", "wband")}
+    want_launch = {"myers_fwd": True, "myers_rev": True, "wband": routed["wband"]}
+    wrong = {k: n for k, n in launches.items() if (n > 0) != want_launch[k]}
+    if wrong or not routed["myers"]:
+        raise AssertionError(f"{tag}: launches {launches} do not follow the routing "
+                             f"(families routed: {routed})")
+    if not routed["wband"]:
+        _say(f"  {tag}: the routing sent no pair to the W-band family (kernel 3)")
+
+
 def staged_cli() -> None:
     """Phase 8: the staged CLI on the card (see the module docstring)."""
     import filecmp
@@ -1246,18 +1270,7 @@ def staged_cli() -> None:
             if len(table) != want:
                 raise AssertionError(f"{tag}: staged overlap gave {len(table)} alignments, "
                                      f"LADDER_r5 has {want}")
-            # kernels 1 and 2 serve the Myers family, kernel 3 the W-band family:
-            # each must have launched exactly when the routing sent it pairs
-            routed = {fam: any(v > 0 for k, v in counters.items()
-                               if k.startswith(f"overlap.family.{fam}."))
-                      for fam in ("myers", "wband")}
-            want_launch = {"myers_fwd": True, "myers_rev": True, "wband": routed["wband"]}
-            wrong = {k: n for k, n in launches.items() if (n > 0) != want_launch[k]}
-            if wrong or not routed["myers"]:
-                raise AssertionError(f"{tag}: launches {launches} do not follow the routing "
-                                     f"(families routed: {routed})")
-            if not routed["wband"]:
-                _say(f"  {tag}: the routing sent no pair to the W-band family (kernel 3)")
+            _check_routed_launches(tag, launches, counters)
             if tag != "c4":
                 continue
 
@@ -1418,12 +1431,9 @@ def _busy_ms(events, names=None) -> float:
 
 def data_parallel() -> None:
     """Phase 9: the data-parallel overlap (see the module docstring)."""
-    import glob
-    import tempfile
-
     import numpy as np
 
-    from phasm_tpu_torch import configs, metrics
+    from phasm_tpu_torch import configs
     from phasm_tpu_torch.overlap.engine import overlap_reads, overlap_reads_blocked
     from phasm_tpu_torch.parallel import make_mesh
 
@@ -1457,22 +1467,79 @@ def data_parallel() -> None:
 
     _dp_job(want_digest)
 
+    got, ms, events = _traced_wall_ms(lambda: overlap_reads(rs, cfg, device="cuda"))
+    if _table_digest(got) != want_digest:
+        raise AssertionError("the traced overlap_reads differs from the unsharded table")
+    _say_busy("traced warm overlap_reads", events, ms)
+
+
+def _traced_wall_ms(fn):
+    """(result, host-clock ms, trace events) of one call that ends in a
+    device sync, inside ``metrics.device_trace``."""
+    import glob
+    import tempfile
+
+    from phasm_tpu_torch import metrics
+
     with tempfile.TemporaryDirectory(prefix="phasm_trace_") as d:
         with metrics.device_trace(d):
-            got, ms = _wall_ms(lambda: overlap_reads(rs, cfg, device="cuda"))
+            got, ms = _wall_ms(fn)
         (path,) = glob.glob(os.path.join(d, "*.json"))
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    if _table_digest(got) != want_digest:
-        raise AssertionError("the traced overlap_reads differs from the unsharded table")
-    ours = {k: _busy_ms(events, [k]) for k in ("myers_fwd_kernel", "myers_rev_kernel", "wband_kernel")}
+    return got, ms, events
+
+
+def _say_busy(label: str, events, ms: float,
+              kernels=("myers_fwd_kernel", "myers_rev_kernel", "wband_kernel")) -> None:
+    """Print a traced call's device busy time and share (kernels, copies,
+    fills) and the time of each of ``kernels``; raise if the trace names
+    one of them not at all."""
+    ours = {k: _busy_ms(events, [k]) for k in kernels}
     missing = [k for k, v in ours.items() if v <= 0]
     if missing:
-        raise AssertionError(f"the trace names no {missing}")
+        raise AssertionError(f"{label}: the trace names no {missing}")
     busy = _busy_ms(events)
-    _say(f"  traced warm overlap_reads: {ms:.1f} ms host clock; device busy {busy:.3f} ms "
-         f"({busy / ms:.2%}: kernels, copies, fills), kernels 1-3 {json.dumps(ours)} ms "
+    _say(f"  {label}: {ms:.1f} ms host clock; device busy {busy:.3f} ms "
+         f"({busy / ms:.2%}: kernels, copies, fills), {json.dumps(ours)} ms "
          f"({sum(ours.values()) / ms:.2%})")
+
+
+def _ladder_r5_row(name: str) -> dict:
+    """The reference ladder's row of rung ``name`` (``LADDER_r5.jsonl``; of
+    a rung listed twice, the last)."""
+    with open(os.path.join(ROOT, "LADDER_r5.jsonl")) as fh:
+        return [row for row in map(json.loads, fh) if row["name"] == name][-1]
+
+
+def _row_vs_ladder_r5(tag: str, row: dict) -> dict:
+    """Print a port ladder row, its stage seconds and launches, and every
+    column it shares with its ``LADDER_r5`` row (``ladder.row_diff``: all
+    but the name, the backend and the ``*_s`` times) whose two values
+    differ; returns those ({column: [port, reference]})."""
+    from phasm_tpu_torch import ladder
+
+    _say(f"{tag} row:", json.dumps(row, sort_keys=True))
+    _say(f"{tag} stage seconds:", json.dumps({k: v for k, v in row.items() if k.endswith("_s")}),
+         "launches per stage:", json.dumps(
+             {k: row[k] for k in ("launches_overlap", "launches_overlap_warm", "launches_assemble")}))
+    shared, diff = ladder.row_diff(row, _ladder_r5_row(row["name"]))
+    _say(f"{tag} vs LADDER_r5 ({len(shared)} shared columns), differing [port, reference]:",
+         json.dumps(diff))
+    return diff
+
+
+def _check_ladder_row(tag: str, row: dict) -> None:
+    """Raise unless a card row equals its ``LADDER_r5`` row in every shared
+    column but the times, and kernels 1 and 2 launched in both overlap
+    calls."""
+    diff = _row_vs_ladder_r5(tag, row)
+    if diff:
+        raise AssertionError(f"{tag}: the row differs from LADDER_r5 in {sorted(diff)}")
+    for stage in ("launches_overlap", "launches_overlap_warm"):
+        for k in ("myers_fwd", "myers_rev"):
+            if row[stage][k] <= 0:
+                raise AssertionError(f"{tag}: {k} never launched in {stage}")
 
 
 def rung_end_to_end(tag: str) -> dict:
@@ -1483,27 +1550,160 @@ def rung_end_to_end(tag: str) -> dict:
     Prints the row, the stage timers, kernel families, wide-band retries,
     launch shapes, and every column the two rows share with its two values
     where they differ; returns the row."""
-    from pathlib import Path
-
     from phasm_tpu_torch import configs, metrics
 
     rung = next(r for r in configs.ladder() if r.name.split("_")[0] == tag)
-    with open(Path(__file__).resolve().parent / "LADDER_r5.jsonl") as fh:
-        ref = next(row for row in map(json.loads, fh) if row["name"] == rung.name)
     metrics.reset()
     _zero_launches()
     row = configs.run_rung(rung, device="cuda")
     report = metrics.report()
-    _say(f"{tag} row:", json.dumps(row, sort_keys=True))
     _say(f"{tag} stage timers (host clock, both overlap calls summed):", json.dumps(
         {k: round(v, 3) for k, v in sorted(report["seconds"].items())}))
     _say_overlap_counters(tag, report["counters"])
-    skip = ("name", "backend") + tuple(k for k in ref if k.endswith("_s"))
-    shared = [k for k in ref if k in row and k not in skip]
-    diff = {k: [row[k], ref[k]] for k in shared if row[k] != ref[k]}
-    _say(f"{tag} vs LADDER_r5 ({len(shared)} shared columns), differing [port, reference]:",
-         json.dumps(diff))
+    _row_vs_ladder_r5(tag, row)
     return row
+
+
+def ladder_rows(tags: str) -> list[dict]:
+    """The port's ladder runner in this process (``ladder.main``, the entry
+    ``python -m phasm_tpu_torch.ladder`` runs) on each rung of ``tags``
+    (comma-separated prefixes, e.g. ``"c2,c5"``) in turn, ``--strict
+    --device cuda``, its metrics and launch counts set to 0 just before;
+    prints each row, its stage timers (``pipeline.polish2`` among them),
+    kernel families and launch shapes, and raises unless every row equals
+    its ``LADDER_r5`` row in every shared column but the times.  Not a
+    phase of ``main`` (c2 and c5 run minutes of round-2 polish on the
+    host); alone:
+    ``python3 -c "import chip_smoke as c; c.build(); c.ladder_rows('c2,c5')"``."""
+    import tempfile
+
+    from phasm_tpu_torch import ladder, metrics
+
+    rows, failed = [], []
+    with tempfile.TemporaryDirectory(prefix="phasm_ladder_") as d:
+        for tag in tags.split(","):
+            out = os.path.join(d, f"{tag}.jsonl")
+            metrics.reset()
+            _zero_launches()
+            t0 = time.perf_counter()
+            ladder.main(["--rungs", tag, "--strict", "--device", "cuda", "--out", out])
+            secs = time.perf_counter() - t0
+            report = metrics.report()
+            with open(out) as fh:
+                (row,) = map(json.loads, fh)
+            _say(f"{tag}: ladder.main {secs:.1f} s; stage timers (host clock, both overlap "
+                 "calls summed):", json.dumps(
+                     {k: round(v, 3) for k, v in sorted(report["seconds"].items())}))
+            _say_overlap_counters(tag, report["counters"])
+            try:
+                _check_ladder_row(tag, row)
+            except AssertionError as e:
+                failed.append(str(e))
+            rows.append(row)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rows
+
+
+def _ladder_subprocess(tags: str) -> list[dict]:
+    """``python -m phasm_tpu_torch.ladder --rungs <tags> --strict --device
+    cuda --out <tmp>`` in a process of its own; returns the rows it wrote,
+    which must be the lines it printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="phasm_ladder_") as d:
+        out = os.path.join(d, "ladder.jsonl")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "phasm_tpu_torch.ladder", "--rungs", tags, "--strict",
+             "--device", "cuda", "--out", out],
+            capture_output=True, text=True, timeout=900, cwd=ROOT,
+        )
+        if res.returncode != 0:
+            raise AssertionError(f"ladder rc={res.returncode}\n{res.stdout[-2000:]}\n"
+                                 f"{res.stderr[-4000:]}")
+        with open(out) as fh:
+            rows = [json.loads(line) for line in fh]
+    if rows != [json.loads(line) for line in res.stdout.splitlines() if line.strip()]:
+        raise AssertionError("the ladder's --out file differs from its stdout")
+    _say(f"  python -m phasm_tpu_torch.ladder --rungs {tags}: {time.perf_counter() - t0:.1f} s, "
+         f"{len(rows)} rows")
+    return rows
+
+
+def scale_overlap() -> None:
+    """Phase 10's scale rungs: c6's and c7's overlap stage alone
+    (``overlap_reads`` in this process, launch counts and metrics set to 0
+    just before each cold call); each table's length must equal
+    ``SCALE_ALIGNMENTS``, kernels 1 and 2 must launch and kernel 3 exactly
+    where the routing sends pairs.  On c6 a warm call runs inside
+    ``metrics.device_trace``: its table must equal the cold one, and its
+    trace gives the device busy share at the reference workload's scale."""
+    import torch
+
+    from phasm_tpu_torch import configs, metrics
+    from phasm_tpu_torch.overlap.engine import overlap_reads
+    from phasm_tpu_torch.sim import simulate_reads
+
+    rungs = {r.name.split("_")[0]: r for r in configs.ladder()}
+    for tag, want in SCALE_ALIGNMENTS.items():
+        rung = rungs[tag]
+        t0 = time.perf_counter()
+        rs, _ = simulate_reads(**rung.sim)
+        sim_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        metrics.reset()
+        _zero_launches()
+        table, ms = _wall_ms(lambda: overlap_reads(rs, rung.overlap, device="cuda"))
+        launches = configs.launch_counts()
+        report = metrics.report()
+        counters = report["counters"]
+        _say(f"  {tag} overlap_reads: {len(table)} alignments (LADDER_r5 {want}), {rs.n_reads} "
+             f"reads, {int(counters['overlap.candidates'])} candidate pairs; sim {sim_s:.1f} s, "
+             f"cold call {ms:.1f} ms; peak device memory "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+        _say(f"  {tag} stage timers (host clock):", json.dumps(
+            {k: round(v, 3) for k, v in sorted(report["seconds"].items())}))
+        _say_overlap_counters(f"  {tag}", counters)
+        if len(table) != want:
+            raise AssertionError(f"{tag}: overlap_reads gave {len(table)} alignments, "
+                                 f"LADDER_r5 has {want}")
+        _check_routed_launches(tag, launches, counters)
+        if tag == "c6":
+            warm, ms, events = _traced_wall_ms(lambda: overlap_reads(rs, rung.overlap, device="cuda"))
+            if _table_digest(warm) != _table_digest(table):
+                raise AssertionError("c6: the traced warm overlap_reads differs from the cold one")
+            kernels = ["myers_fwd_kernel", "myers_rev_kernel"]
+            if launches["wband"]:
+                kernels.append("wband_kernel")
+            _say_busy("c6 traced warm overlap_reads", events, ms, kernels)
+
+
+def headline_bench() -> None:
+    """``python -m phasm_tpu_torch.bench`` in a process of its own: prints
+    its ``#`` lines; its last stdout line must be the metric line, family
+    ``myers``, value > 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "phasm_tpu_torch.bench"],
+                         capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if res.returncode != 0:
+        raise AssertionError(f"bench rc={res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    for line in res.stderr.splitlines():
+        if line.startswith("#"):
+            _say(f"  {line}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    _say(f"  python -m phasm_tpu_torch.bench: {time.perf_counter() - t0:.1f} s;", json.dumps(line))
+    if line["metric"] != BENCH_METRIC or not line["value"] > 0:
+        raise AssertionError(f"bench line {line}, expected {BENCH_METRIC} with a positive value")
+
+
+def ladder_and_bench() -> None:
+    """Phase 10: the ladder runner on c1 (a process of its own), c6's and
+    c7's overlap, the headline bench (see the module docstring)."""
+    (row,) = _ladder_subprocess("c1")
+    _check_ladder_row("c1", row)
+    scale_overlap()
+    headline_bench()
 
 
 def main() -> int:
@@ -1537,6 +1737,8 @@ def main() -> int:
     staged_cli()
     _say("data parallel (c4 overlap on meshes of 2 and 4 shards, a 2-process job, a trace):")
     data_parallel()
+    _say("ladder and bench (c1 end to end, c6 and c7 overlap, the headline bench):")
+    ladder_and_bench()
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
         recs = checks[name]

@@ -34,6 +34,10 @@ Layer map (counterpart of each reference module in brackets):
   configs       the ladder + run_rung                   [phasm_tpu.configs]
   cli           simulate, overlap, filter, layout, phase,
                 pipeline subcommands                    [phasm_tpu.cli]
+  ladder        the ladder runner, one JSON row a rung
+                                         [scripts/run_ladder.py]
+  bench         the headline bench (production alignments/s)
+                                               [bench.py at the repo root]
   graft_entry   entry, dryrun_multichip   [__graft_entry__ at the repo root]
 
 Every CUDA kernel has a plain PyTorch version beside it; a wrapper runs the

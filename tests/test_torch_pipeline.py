@@ -71,7 +71,9 @@ GUARD = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None  # any `import jax` now raises ImportError
     sys.modules["phasm_tpu"] = None  # and so does any import of the reference
-    from phasm_tpu_torch import cli, configs  # noqa: F401
+    sys.modules["bench"] = None  # and of the reference's bench and scripts
+    sys.modules["scripts"] = None
+    from phasm_tpu_torch import bench, cli, configs, ladder  # noqa: F401
     from phasm_tpu_torch.overlap import myers_cuda
     from phasm_tpu_torch.overlap import extend
     out = sys.argv[1]
@@ -117,8 +119,10 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Static guard: no import statement anywhere in phasm_tpu_torch/ or
-    chip_smoke.py names jax or phasm_tpu, at module level or inside a
-    function (where the subprocess guard would not reach it)."""
+    chip_smoke.py names jax or phasm_tpu, or the reference's top-level
+    ``bench`` or ``scripts`` (the port keeps its own bench and ladder
+    runner), at module level or inside a function (where the subprocess
+    guard would not reach it)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "phasm_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -126,6 +130,6 @@ def test_port_imports_neither_jax_nor_the_reference():
     bad = [
         (os.path.relpath(f, REPO), line, mod)
         for f in files for line, mod in _imports(f)
-        if mod.split(".")[0] in ("jax", "jaxlib", "phasm_tpu")
+        if mod.split(".")[0] in ("jax", "jaxlib", "phasm_tpu", "bench", "scripts")
     ]
     assert bad == []
